@@ -1,26 +1,54 @@
-"""Drive the PyTorch port's main path once on one CUDA card, check every
-kernel on that path against its plain PyTorch version, and report.
+"""Drive the PyTorch port's paths once on one CUDA card, check every
+kernel on them against its plain PyTorch version, and report.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
 1. device: CUDA is required; prints the card's name and power limit;
-2. build: compiles the CUDA kernels from csrc/ with nvcc (timed);
-3. kernel against plain on the procedural Sponza (scale 2, 248K
+2. build: compiles the CUDA kernels from csrc/ with nvcc, one process
+   per source (timed), and prints ptxas' registers and spills;
+3. traverse8 against plain on the procedural Sponza (scale 2, 248K
    triangles): 65,536 primary and 65,536 first-bounce rays; tri ids
-   equal outside 1e-6-relative t ties, t rtol 1e-4, u/v atol 1e-4;
-   t_init = t gives no hit; inactive lanes report t = 0, tri = -1;
+   equal outside ties (t within 1e-6 relative), t rtol 1e-4 on every
+   hit, u/v atol 1e-4 where ids agree; t_init = t gives no hit;
+   inactive lanes report (0, -1, 0, 0);
 4. the same comparison, then the times of kernel and plain, at 1M
-   primary and 1M bounce rays;
-5. the cube fixture rendered on cuda and on the cpu through the same
+   primary and 1M bounce rays, and the bound of the bounce launch (its
+   work counted by the host build of the kernel's walk, which must
+   return the kernel's hits bit for bit);
+5. traverse5 in MT mode on the same scene (rows from sah.leaf_rows) and
+   the same 65,536 + 65,536 rays: against its plain version with the
+   rules of 3, and against traverse8 (Woop vs MT: hit/miss agreement
+   >= 0.999, 99th percentile of relative t difference < 5e-4);
+6. the cube fixture rendered on cuda and on the cpu through the same
    port, compared with the flip-tolerant image gate;
-6. the headline render: sponza_proc scale 2, 1024x1024, 64 spp,
+7. the baked headline render: sponza_proc scale 2, 1024x1024, 64 spp,
    depth 10, after an untimed 1-spp warm-up with another seed; checks
-   that every bounce launched the kernel once and that the image is
-   finite and not black.
+   that every bounce launched traverse8 once (and traverse5 never) and
+   that the image is finite and not black;
+8. instanced against baked: instanced_proc (r = 1000), 512x512, depth
+   8, two-level (traverse5) and baked (traverse8): the relative |dt|
+   between the two traversals on the frame's primary and first-bounce
+   rays, then renders at 1 spp (flip fraction and trimmed RMSE gated,
+   untrimmed RMSE reported) and 64 spp (the whole flip-tolerant gate),
+   with per-bounce tallies within max(16, 0.5 %);
+9. minecraft_proc two-level (171,997 instances): set-up times, counts
+   and table bytes; traverse5 (itf mode) against plain on 65,536 and
+   1M primary and 1M first-bounce rays with the rules of 3 (ties in
+   world units, see compare_hits), the times of kernel and plain at 1M
+   rays, and the bound as in 4;
+10. the instanced headline render: minecraft_proc --shared-instances,
+   1024x1024, 64 spp, depth 10, after an untimed 1-spp warm-up with
+   another seed; checks that every bounce launched traverse5 once and
+   traverse8 never, and that the image is finite and not black.
+
+Both headline frames also report their kernel's time within the frame,
+from CUDA events around each launch.
 
 The last two lines of standard output are a JSON object with one entry
-per kernel, then {"ok": true, "device": {...}}.
+per kernel (its launches in its headline, max |dt| against plain, its
+time and plain's at 1M bounce rays, and its bound from this run's
+inputs), then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,13 +62,38 @@ import time
 import numpy as np
 import torch
 
-REPLACES = "sycl_ray_tracer_tpu/ops/traverse_pallas8.py:371"
-SOURCE = "sycl_ray_tracer_torch/csrc/traverse8.cu"
+PKG = "sycl_ray_tracer_torch"
+KERNELS = {
+    "traverse8": dict(source=f"{PKG}/csrc/traverse8.cu",
+                      replaces="sycl_ray_tracer_tpu/ops/traverse_pallas8.py"
+                               ":371"),
+    "traverse5": dict(source=f"{PKG}/csrc/traverse5.cu",
+                      replaces="sycl_ray_tracer_tpu/ops/traverse_pallas5.py"
+                               ":424"),
+}
 # flip-tolerant image gate (the thresholds of tests/test_render.py)
 RMSE_GATE = 2e-3
 FLIP_THRESH = 0.05
 FLIP_FRACTION_MAX = 5e-3
 RMSE_UNTRIMMED_GATE = 4e-3
+# The card's published peaks (H100 SXM data sheet, at 700 W): HBM
+# bytes/s, and f32 instructions/s outside the tensor cores: the data
+# sheet's 67 TFLOP/s counts an FMA as two operations, and the kernels
+# are built with -fmad=false, so each add, multiply, min/max or compare
+# is one instruction at half that rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_INSTR_PER_S = 67e12 / 2
+# f32 operations counted from the code (adds, multiplies, divides,
+# min/max and compares, one each; a divide is several instructions, so
+# this undercounts and the bound errs low): a child box's slab test is
+# 25 (csrc/bvh8_walk.cuh); a leaf test is 8 slots of 45 (Woop,
+# traverse8.cuh) or 53 (Moller-Trumbore, traverse5.cuh), plus 33 for
+# the instance transform of o and d in itf mode.
+OPS_BOX = 25
+OPS_LEAF = {"traverse8": 8 * 45, "traverse5": 8 * 53,
+            "traverse5-itf": 8 * 53 + 33}
+# bytes per ray: o and d in (6 f32), t, tri, u, v out (4 x 4 bytes)
+RAY_BYTES = 40
 
 
 def log(msg: str) -> None:
@@ -62,17 +115,19 @@ def phase_device() -> str:
 
 
 def phase_build():
-    from sycl_ray_tracer_torch.ops import traverse8 as t8
+    from sycl_ray_tracer_torch.ops import kernels
 
     t0 = time.perf_counter()
-    path = t8.build_library()
+    path = kernels.build_library()
     secs = time.perf_counter() - t0
-    log(f"[build] {os.path.relpath(path)} in {secs:.2f} s")
+    log(f"[build] {os.path.relpath(path)} ({', '.join(kernels.CUDA_SOURCES)}"
+        f") in {secs:.2f} s")
     with open(path + ".log") as f:
         for line in f:
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "error")):
                 log("[build]   " + line.strip())
-    t8._load()
+    kernels.load_library()
 
 
 def _rays_from_queue(q: torch.Tensor, n: int):
@@ -98,14 +153,60 @@ def make_rays(scene, cam, width: int, height: int, n: int):
     return primary, _rays_from_queue(q, n)
 
 
-def compare_hits(scene, o, d, label: str) -> float:
-    """Kernel against plain on the same rays; returns max |t| error."""
-    from sycl_ray_tracer_torch.ops.traverse8 import traverse8, traverse8_plain
+def kernel_tables(name: str, scene, mt=None) -> list:
+    """The tables of kernel `name` on a scene, in the order of its C
+    entry point. traverse5 takes `mt` (MT mode on a baked scene) or the
+    scene's instanced tables (itf mode)."""
+    if name == "traverse8":
+        return [scene.bvh_nodes, scene.bvh_child_ids, scene.bvh_woop,
+                scene.sah_ni]
+    if mt is not None:
+        return [scene.bvh_nodes, scene.bvh_child_ids, mt, None, None,
+                scene.sah_ni]
+    return [scene.bvh_nodes, scene.bvh_child_ids, scene.bvh_mt,
+            scene.inst_leaf_slot, scene.inst_xf, scene.sah_ni]
 
-    args = (scene.bvh_nodes, scene.bvh_child_ids, scene.bvh_woop,
-            scene.sah_ni, o, d)
-    k = traverse8(*args)
-    p = traverse8_plain(*args)
+
+def kernel_pair(name: str, scene, mt=None):
+    """(kernel, plain) callables of `name` on a scene's tables (see
+    kernel_tables), as f(o, d, **kw) -> Hit."""
+    from sycl_ray_tracer_torch.ops import traverse5 as t5
+    from sycl_ray_tracer_torch.ops import traverse8 as t8
+
+    tabs = kernel_tables(name, scene, mt)
+    if name == "traverse8":
+        extra = {}
+        kern, plain = t8.traverse8, t8.traverse8_plain
+    else:
+        nodes, ids, rows, slot, xf, ni = tabs
+        tabs = [nodes, ids, rows, ni]
+        extra = {} if slot is None else dict(leaf_slot=slot, leaf_xf=xf)
+        kern, plain = t5.traverse5, t5.traverse5_plain
+    return ((lambda o, d, **kw: kern(*tabs, o, d, **extra, **kw)),
+            (lambda o, d, **kw: plain(*tabs, o, d, **extra, **kw)))
+
+
+def compare_hits(kern, plain, o, d, label: str,
+                 world_ties: bool = False) -> float:
+    """Kernel against plain on the same rays; returns max |t| error on
+    the lanes whose ids agree.
+
+    Ids must agree outside ties, where the order of the walk
+    (depth-first in the kernel, level by level in plain) may pick
+    either hit. Two hits tie when their t agree within 1e-6 relative.
+    With world_ties (traverse5 itf only) they also tie when their
+    points on the ray lie within 1e-6 of the coordinates' scale
+    (|o| + t |d|): an instance's node box, rounded to nearest f32, can
+    prune the closer of two such hits once the kernel has found the
+    other. On minecraft_proc's coplanar voxel faces, 62 of 1M
+    first-bounce rays tie only so; one of them leaves its surface at t
+    about 1.4e-4, just past TNEAR, and its two hits differ by 9.5e-8 in
+    t, 6.8e-4 relative. Those world ties are held to the world-unit
+    window, counted, and their largest relative gap printed; every
+    other hit must agree in t to rtol 1e-4, and lanes whose ids agree
+    in u, v to atol 1e-4."""
+    k = kern(o, d)
+    p = plain(o, d)
     torch.cuda.synchronize()
     kt, pt = k.t.cpu().numpy(), p.t.cpu().numpy()
     ki, pi = k.tri.cpu().numpy(), p.tri.cpu().numpy()
@@ -113,13 +214,19 @@ def compare_hits(scene, o, d, label: str) -> float:
         raise AssertionError(f"{label}: hit/miss differ on "
                              f"{int(((ki >= 0) != (pi >= 0)).sum())} rays")
     hit = pi >= 0
-    tie = np.abs(kt - pt) <= 1e-6 * np.abs(pt)
-    bad = hit & (ki != pi) & ~tie
+    dlen = torch.stack(list(d), 1).norm(dim=1).cpu().numpy()
+    scale = (torch.stack(list(o), 1).abs().amax(1).cpu().numpy()
+             + np.where(hit, pt, 0.0) * dlen)
+    world = hit & (ki != pi) & (np.abs(kt - pt) > 1e-6 * np.abs(pt))
+    bad = world
+    if world_ties:
+        bad = world & (np.abs(kt - pt) * dlen > 1e-6 * scale)
     if bad.any():
         raise AssertionError(f"{label}: tri ids differ outside ties on "
                              f"{int(bad.sum())} rays")
     same = hit & (ki == pi)
-    np.testing.assert_allclose(kt[hit], pt[hit], rtol=1e-4)
+    np.testing.assert_allclose(kt[hit & ~world], pt[hit & ~world],
+                               rtol=1e-4)
     for a, b in ((k.u, p.u), (k.v, p.v)):
         np.testing.assert_allclose(a.cpu().numpy()[same],
                                    b.cpu().numpy()[same], atol=1e-4)
@@ -127,13 +234,13 @@ def compare_hits(scene, o, d, label: str) -> float:
         raise AssertionError(f"{label}: miss lanes differ")
 
     # t_init chaining: nothing is strictly closer than the found t
-    k2 = traverse8(*args, t_init=k.t)
+    k2 = kern(o, d, t_init=k.t)
     if not bool((k2.tri == -1).all()):
         raise AssertionError(f"{label}: t_init = t still reports hits")
     # inactive lanes: t = 0, tri = -1, u = v = 0; active lanes unchanged
     gen = torch.Generator(device="cpu").manual_seed(11)
     active = (torch.rand(o.x.shape[0], generator=gen) < 0.5).to(o.x.device)
-    k3 = traverse8(*args, active=active)
+    k3 = kern(o, d, active=active)
     ina = ~active
     if not (bool((k3.tri[ina] == -1).all()) and bool((k3.t[ina] == 0).all())
             and bool((k3.u[ina] == 0).all())
@@ -143,9 +250,15 @@ def compare_hits(scene, o, d, label: str) -> float:
             and bool((k3.t[active] == k.t[active]).all())):
         raise AssertionError(f"{label}: active lanes changed with a mask")
     err = float(np.abs(kt[same] - pt[same]).max()) if same.any() else 0.0
+    broken = hit & (ki != pi)
+    rel = (np.abs(kt - pt) / pt)[world]
     log(f"[kernel] {label}: {o.x.shape[0]} rays, {hit.mean():.4f} hit, "
-        f"{int((hit & (ki != pi)).sum())} tie-broken ids, "
-        f"max |dt| {err:.3g}: ok")
+        f"{int(broken.sum())} tie-broken ids (kernel farther on "
+        f"{int((kt[broken] > pt[broken]).sum())}), of which "
+        f"{int(world.sum())} world ties beyond 1e-6 of t (up to "
+        f"{rel.max() if rel.size else 0.0:.3g} relative, "
+        f"{int((rel > 1e-4).sum())} beyond 1e-4); max |dt| where ids "
+        f"agree {err:.3g}: ok")
     return err
 
 
@@ -162,46 +275,98 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_times(scene, rays, smi: str):
-    from sycl_ray_tracer_torch.ops.traverse8 import traverse8, traverse8_plain
-
+def phase_times(kern, plain, rays, smi: str, label: str):
+    """Kernel and plain times at each set of rays, in turns (plain,
+    kernel, kernel, plain)."""
     out = {}
-    for label, (o, d) in rays.items():
-        args = (scene.bvh_nodes, scene.bvh_child_ids, scene.bvh_woop,
-                scene.sah_ni, o, d)
-        plain_a = time_ms(lambda: traverse8_plain(*args), 2)
-        kern_a = time_ms(lambda: traverse8(*args), 10)
-        kern_b = time_ms(lambda: traverse8(*args), 10)
-        plain_b = time_ms(lambda: traverse8_plain(*args), 2)
-        kern, plain = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+    for what, (o, d) in rays.items():
+        plain_a = time_ms(lambda: plain(o, d), 2)
+        kern_a = time_ms(lambda: kern(o, d), 10)
+        kern_b = time_ms(lambda: kern(o, d), 10)
+        plain_b = time_ms(lambda: plain(o, d), 2)
+        k, p = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
         n = o.x.shape[0]
-        log(f"[times] {label} {n} rays on {smi}: kernel {kern:.3f} ms "
-            f"({n / kern / 1e3:.1f} Mrays/s; runs {kern_a:.3f}, "
-            f"{kern_b:.3f}), plain {plain:.3f} ms (runs {plain_a:.3f}, "
+        log(f"[times] {label} {what} {n} rays on {smi}: kernel {k:.3f} ms "
+            f"({n / k / 1e3:.1f} Mrays/s; runs {kern_a:.3f}, "
+            f"{kern_b:.3f}), plain {p:.3f} ms (runs {plain_a:.3f}, "
             f"{plain_b:.3f})")
-        out[label] = (kern, plain)
+        out[what] = (k, p)
     return out
 
 
-def check_images(a: np.ndarray, b: np.ndarray, label: str) -> None:
+def table_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(name: str, scene, kern, o, d, label: str):
+    """(bound_ms, bound_by) of one launch of kernel `name` on these rays:
+    the larger of the bytes it must move (rays in and out, tables read
+    once) over the HBM rate, and the f32 operations of the kernel's own
+    walk on these rays over the f32 instruction rate. The walk's child
+    boxes and leaves are counted by its host build (csrc/walk_host.cpp,
+    g++), whose hits must equal the kernel's bit for bit."""
+    from sycl_ray_tracer_torch.ops import kernels
+    from sycl_ray_tracer_torch.ops.vec import V3
+
+    tables = kernel_tables(name, scene)
+    tensors = [x for x in tables if isinstance(x, torch.Tensor)]
+    counts = torch.zeros(2, dtype=torch.int64)
+    t0 = time.perf_counter()
+    host = kernels.run_host(
+        name, [x.cpu() if isinstance(x, torch.Tensor) else x
+               for x in tables],
+        V3(*(c.cpu() for c in o)), V3(*(c.cpu() for c in d)),
+        counts=counts)
+    secs = time.perf_counter() - t0
+    k = kern(o, d)
+    for a, b in zip(host, k):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError(f"{label}: the host walk's hits differ "
+                                 "from the kernel's")
+    boxes, leaves = counts.tolist()
+    n = o.x.shape[0]
+    nbytes = n * RAY_BYTES + table_bytes(*tensors)
+    key = name + ("-itf" if name == "traverse5" else "")
+    ops = boxes * OPS_BOX + leaves * OPS_LEAF[key]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_INSTR_PER_S
+    log(f"[bound] {label}: the kernel's walk slab-tests {boxes / n:.2f} "
+        f"child boxes and tests {leaves / n:.2f} leaves per ray (host "
+        f"build, equal hits, {secs:.1f} s); {nbytes} bytes "
+        f"({t_bytes * 1e3:.4f} ms), {ops} f32 operations "
+        f"({t_ops * 1e3:.4f} ms)")
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_images(a: np.ndarray, b: np.ndarray, label: str,
+                 untrimmed_gate: float | None = RMSE_UNTRIMMED_GATE) -> None:
+    """The flip-tolerant gate; untrimmed_gate=None reports the untrimmed
+    RMSE without gating it (see phase_instanced_vs_baked)."""
     d = np.abs(a - b).max(axis=-1)
     flips = d > FLIP_THRESH
     trimmed = float(np.sqrt(np.mean(
         (a[~flips].astype(np.float64) - b[~flips]) ** 2)))
     untrimmed = float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2)))
-    log(f"[cross] {label}: flips {flips.mean():.5f}, trimmed RMSE "
-        f"{trimmed:.3g}, untrimmed {untrimmed:.3g}")
+    log(f"[cross] {label}: flips {flips.mean():.5f} ({int(flips.sum())} "
+        f"pixels), trimmed RMSE {trimmed:.3g}, untrimmed {untrimmed:.3g}")
     if not (flips.mean() < FLIP_FRACTION_MAX and trimmed < RMSE_GATE
-            and untrimmed < RMSE_UNTRIMMED_GATE):
+            and (untrimmed_gate is None or untrimmed < untrimmed_gate)):
         raise AssertionError(f"{label}: images disagree")
 
 
-def load(glb: bytes, width: int, height: int, device):
-    from sycl_ray_tracer_torch.models.scene import build_device_scene
-    from sycl_ray_tracer_torch.utils.gltf import load_glb
+def check_tallies(a: np.ndarray, b: np.ndarray, label: str) -> None:
+    log(f"[cross] {label} tallies {a.tolist()} vs {b.tolist()}")
+    if (np.abs(a - b) > np.maximum(16, 0.005 * b)).any():
+        raise AssertionError(f"{label}: per-bounce tallies differ beyond "
+                             "the flip tail")
 
-    host = load_glb(glb)
-    scene = build_device_scene(host, device=device)
+
+def load(glb: bytes, width: int, height: int, device,
+         shared_instances: bool = False):
+    """(DeviceScene, Camera, host) through the CLI's scene loader."""
+    from sycl_ray_tracer_torch.utils.cli import load_scene
+
+    scene, host = load_scene(glb, device, shared_instances)
     return scene, camera(host, width, height, device), host
 
 
@@ -211,6 +376,34 @@ def camera(host, width: int, height: int, device):
     return make_camera(width, height, host.camera_position,
                        host.camera_direction, host.camera_focal_length,
                        device=device)
+
+
+def phase_mt_mode(scene, host, rays: dict) -> float:
+    """traverse5 in MT mode on the baked SAH tree: against its plain
+    version, and against traverse8 (Woop) on the same rays."""
+    from sycl_ray_tracer_torch.ops import sah
+
+    order = sah.build_sah(host.tri_v, 8).order
+    mt = torch.from_numpy(sah.slot_rows(sah.leaf_rows(host.tri_v, order, 8),
+                                        8)).to(scene.bvh_nodes.device)
+    kern, plain = kernel_pair("traverse5", scene, mt=mt)
+    k8, _ = kernel_pair("traverse8", scene)
+    err = 0.0
+    for label, (o, d) in rays.items():
+        err = max(err, compare_hits(kern, plain, o, d, f"traverse5 MT "
+                                    f"sponza {label}"))
+        a, b = kern(o, d), k8(o, d)
+        ha, hb = (a.tri >= 0).cpu().numpy(), (b.tri >= 0).cpu().numpy()
+        agree = float((ha == hb).mean())
+        both = ha & hb
+        ta, tb = a.t.cpu().numpy()[both], b.t.cpu().numpy()[both]
+        p99 = float(np.percentile(np.abs(ta - tb) / np.abs(tb), 99))
+        log(f"[kernel] traverse5 MT vs traverse8 sponza {label}: hit/miss "
+            f"agreement {agree:.6f}, p99 relative |dt| {p99:.3g}")
+        if agree < 0.999 or p99 >= 5e-4:
+            raise AssertionError(f"traverse5 MT vs traverse8 {label}: "
+                                 "Woop and MT disagree")
+    return err
 
 
 def phase_cross_check():
@@ -224,45 +417,128 @@ def phase_cross_check():
         img, rays = render_wavefront(scene, cam, **kw)
         imgs.append(img.cpu().numpy())
         tallies.append(rays.numpy())
-    log(f"[cross] cube 96x96 spp4 d8 tallies cuda {tallies[0].tolist()} "
-        f"cpu {tallies[1].tolist()}")
     check_images(imgs[0], imgs[1], "cube cuda vs cpu")
-    slack = np.maximum(16, 0.005 * tallies[1])
-    if (np.abs(tallies[0] - tallies[1]) > slack).any():
-        raise AssertionError("cube: per-bounce tallies differ beyond the "
-                             "flip tail")
+    check_tallies(tallies[0], tallies[1], "cube cuda vs cpu")
 
 
-def phase_headline(scene, cam, smi: str):
+def phase_instanced_vs_baked():
+    """instanced_proc two-level (traverse5) and baked (traverse8) on the
+    card: the same geometry in another space. First the two traversals
+    on the same primary and first-bounce rays of the 512x512 frame
+    (hit/miss agreement, distribution of the relative |dt|), then the
+    renders. At 1 spp every flipped path moves its pixel by a whole
+    sample, so the untrimmed RMSE is reported there and gated at 64 spp,
+    where the flip tail's energy is averaged as in tests/test_render.py;
+    flips, trimmed RMSE and tallies are gated at both."""
     from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.ops.traverse5 import traverse5
     from sycl_ray_tracer_torch.ops.traverse8 import traverse8
+    from sycl_ray_tracer_torch.utils.cli import resolve_scene_bytes
+
+    glb = resolve_scene_bytes("instanced_proc")
+    cuda = torch.device("cuda")
+    scenes = {shared: load(glb, 512, 512, cuda, shared)
+              for shared in (True, False)}
+    k5, _ = kernel_pair("traverse5", scenes[True][0])
+    k8, _ = kernel_pair("traverse8", scenes[False][0])
+    rays = make_rays(scenes[False][0], scenes[False][1], 512, 512, 1 << 18)
+    for label, (o, d) in zip(("primary", "bounce"), rays):
+        a, b = k5(o, d), k8(o, d)
+        ha, hb = (a.tri >= 0).cpu().numpy(), (b.tri >= 0).cpu().numpy()
+        both = ha & hb
+        rel = (np.abs(a.t.cpu().numpy() - b.t.cpu().numpy())[both]
+               / b.t.cpu().numpy()[both])
+        q = np.percentile(rel, [50, 99, 99.9])
+        # hits within 1e-3 of the origin: the bounce ray's own surface,
+        # seen in another space around TNEAR
+        dlen = torch.stack(list(d), 1).norm(dim=1).cpu().numpy()[both]
+        near = (np.minimum(a.t.cpu().numpy()[both], b.t.cpu().numpy()[both])
+                * dlen < 1e-3)
+        far = rel > 1e-4
+        log(f"[cross] instanced_proc two-level vs baked {label} "
+            f"{o.x.shape[0]} rays: {both.mean():.4f} hit both, hit/miss "
+            f"differ on {int((ha != hb).sum())}, relative |dt| p50 "
+            f"{q[0]:.3g} p99 {q[1]:.3g} p99.9 {q[2]:.3g} max "
+            f"{rel.max():.3g}; {int(far.sum())} above 1e-4, of which "
+            f"{int((far & near).sum())} have a hit within 1e-3 of the "
+            f"origin")
+    for spp in (1, 64):
+        kw = dict(width=512, height=512, spp=spp, max_depth=8, seed=0)
+        out = {}
+        for shared, (scene, cam, _) in scenes.items():
+            traverse5.launches = traverse8.launches = 0
+            img, tallies = render_wavefront(scene, cam, **kw)
+            bounces = int((tallies > 0).sum())
+            used = traverse5.launches if shared else traverse8.launches
+            other = traverse8.launches if shared else traverse5.launches
+            if used != bounces or other != 0:
+                raise AssertionError("instanced_proc went through the "
+                                     "wrong kernel")
+            out[shared] = (img.cpu().numpy(), tallies.numpy())
+        label = f"instanced_proc 512x512 spp{spp} d8 two-level vs baked"
+        check_images(out[True][0], out[False][0], label,
+                     untrimmed_gate=None if spp == 1 else
+                     RMSE_UNTRIMMED_GATE)
+        check_tallies(out[True][1], out[False][1], label)
+
+
+def phase_headline(scene, cam, smi: str, label: str, kernel, absent):
+    """1024x1024, 64 spp, depth 10 after a 1-spp warm-up; returns the
+    launches of `kernel` in the timed frame. CUDA events around each
+    kernel launch (ops/kernels.py:launch) give the kernel's time within
+    the frame."""
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.ops import kernels
 
     kw = dict(width=1024, height=1024, max_depth=10)
     render_wavefront(scene, cam, spp=1, seed=1, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    traverse8.launches = 0
-    t0 = time.perf_counter()
-    img, rays = render_wavefront(scene, cam, spp=64, seed=0, **kw)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = traverse8.launches
+    kernel.launches = absent.launches = 0
+    events, launch = [], kernels.launch
+
+    def timed_launch(*args):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        hit = launch(*args)
+        ev[1].record()
+        events.append((ev, args[2].x.shape[0]))
+        return hit
+
+    kernels.launch = timed_launch
+    try:
+        t0 = time.perf_counter()
+        img, rays = render_wavefront(scene, cam, spp=64, seed=0, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        kernels.launch = launch
+    launches = kernel.launches
+    per = [(a.elapsed_time(b), n) for (a, b), n in events]
+    kern_ms = sum(ms for ms, _ in per)
+    log(f"[headline] {label}: {kernel.__name__} {kern_ms:.3f} ms of the "
+        f"frame's {secs * 1e3:.3f} ms ({100 * kern_ms / secs / 1e3:.2f} %) "
+        f"in {len(per)} launches; per launch (ms, rays): "
+        + ", ".join(f"({ms:.3f}, {n})" for ms, n in per))
     total = int(rays.sum())
     print(f"Time measured: {secs:.6f} seconds")
     print(f"Total rays: {total}")
     print(f"Rays/sec: {total / secs / 1e6:.2f}M")
     bounces = int((rays > 0).sum())
-    log(f"[headline] sponza_proc scale 2 1024x1024 spp64 d10 on {smi}: "
+    log(f"[headline] {label} 1024x1024 spp64 d10 on {smi}: "
         f"{total / secs / 1e6:.4f} Mrays/s, tallies {rays.tolist()}, "
-        f"kernel launches {launches}, peak memory "
+        f"{kernel.__name__} launches {launches}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if launches != bounces:
-        raise AssertionError(f"kernel launched {launches} times for "
-                             f"{bounces} bounces")
+    if launches != bounces or absent.launches != 0:
+        raise AssertionError(
+            f"{kernel.__name__} launched {launches} times for {bounces} "
+            f"bounces, {absent.__name__} {absent.launches} times")
     img = img.cpu().numpy()
     if not np.isfinite(img).all() or img.max() <= 0.0 or img.mean() < 0.01:
-        raise AssertionError("headline image is not finite or is black")
-    if total != int(rays.sum()) or rays[0] != 1024 * 1024 * 64:
+        raise AssertionError(f"{label} headline image is not finite or is "
+                             "black")
+    if rays[0] != 1024 * 1024 * 64:
         raise AssertionError("ray tallies inconsistent")
     log(f"[headline] image mean {img.mean():.4f}, max {img.max():.4f}")
     return launches
@@ -274,35 +550,96 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
 
-    from sycl_ray_tracer_torch.utils.procgen import sponza_like_glb
+    from sycl_ray_tracer_torch.ops.traverse5 import traverse5
+    from sycl_ray_tracer_torch.ops.traverse8 import traverse8
+    from sycl_ray_tracer_torch.utils.cli import resolve_scene_bytes
 
+    cuda = torch.device("cuda")
+    report = {}
+
+    # ---- the baked main path (sponza_proc scale 2, traverse8) ----
     t0 = time.perf_counter()
-    scene, cam, host = load(sponza_like_glb(scale=2), 1024, 1024,
-                            torch.device("cuda"))
+    scene, cam, host = load(resolve_scene_bytes("sponza_proc"), 1024, 1024,
+                            cuda)
     log(f"[scene] sponza_proc scale 2: {scene.num_triangles} triangles, "
         f"NI {scene.sah_ni}, depth {scene.bvh_depth}, built in "
         f"{time.perf_counter() - t0:.2f} s")
-
-    prim, bounce = make_rays(scene, camera(host, 256, 256, cam.center.device),
-                             256, 256, 65536)
-    err = max(compare_hits(scene, *prim, "primary"),
-              compare_hits(scene, *bounce, "bounce"))
-
+    kern, plain = kernel_pair("traverse8", scene)
+    prim, bounce = make_rays(scene, camera(host, 256, 256, cuda), 256, 256,
+                             65536)
+    err8 = max(compare_hits(kern, plain, *prim, "traverse8 primary"),
+               compare_hits(kern, plain, *bounce, "traverse8 bounce"))
     prim1m, bounce1m = make_rays(scene, cam, 1024, 1024, 1 << 20)
-    err = max(err, compare_hits(scene, *prim1m, "primary 1M"),
-              compare_hits(scene, *bounce1m, "bounce 1M"))
-    times = phase_times(scene, {"primary": prim1m, "bounce": bounce1m},
-                        smi)
+    err8 = max(err8,
+               compare_hits(kern, plain, *prim1m, "traverse8 primary 1M"),
+               compare_hits(kern, plain, *bounce1m, "traverse8 bounce 1M"))
+    times = phase_times(kern, plain, {"primary": prim1m, "bounce": bounce1m},
+                        smi, "traverse8 sponza_proc")
+    b8 = bound("traverse8", scene, kern, *bounce1m,
+               "traverse8 sponza_proc bounce 1M")
     del prim1m, bounce1m
+    err5 = phase_mt_mode(scene, host, {"primary": prim, "bounce": bounce})
+    del prim, bounce
 
     phase_cross_check()
-    launches = phase_headline(scene, cam, smi)
+    launches8 = phase_headline(scene, cam, smi, "sponza_proc scale 2",
+                               traverse8, traverse5)
+    report["traverse8"] = dict(launches=launches8, max_abs_err=err8,
+                               times=times["bounce"], bound=b8)
+    del scene, cam, host, kern, plain
+    torch.cuda.empty_cache()
 
-    kern_ms, plain_ms = times["bounce"]
-    print(json.dumps({"kernels": [{
-        "name": "traverse8", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": err,
-        "ms": kern_ms, "plain_ms": plain_ms}]}))
+    # ---- the two-level instanced path (traverse5, itf mode) ----
+    phase_instanced_vs_baked()
+    t0 = time.perf_counter()
+    glb = resolve_scene_bytes("minecraft_proc")
+    t1 = time.perf_counter()
+    scene, cam, ih = load(glb, 1024, 1024, cuda, shared_instances=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tables = (scene.bvh_nodes, scene.bvh_child_ids, scene.bvh_mt,
+              scene.inst_leaf_slot, scene.inst_xf)
+    log(f"[scene] minecraft_proc two-level: {ih.num_instances} instances, "
+        f"{ih.num_unique_triangles} unique and {ih.num_world_triangles} "
+        f"world triangles, NI {scene.sah_ni}, "
+        f"{scene.inst_leaf_slot.shape[0]} leaves, depth {scene.bvh_depth}; "
+        f"traversal tables {table_bytes(*tables)} bytes, with remap, "
+        f"normal matrices and shading rows "
+        f"{table_bytes(*tables, scene.bvh_remap, scene.inst_nmat, scene.shade_tbl)}"
+        f" bytes; GLB generated in {t1 - t0:.2f} s, loaded and built in "
+        f"{t2 - t1:.2f} s")
+    kern, plain = kernel_pair("traverse5", scene)
+    prim, bounce = make_rays(scene, camera(ih, 256, 256, cuda), 256, 256,
+                             65536)
+    err5 = max(err5, compare_hits(kern, plain, *prim,
+                                  "traverse5 itf minecraft primary",
+                                  world_ties=True))
+    del prim, bounce
+    prim1m, bounce1m = make_rays(scene, cam, 1024, 1024, 1 << 20)
+    err5 = max(err5,
+               compare_hits(kern, plain, *prim1m,
+                            "traverse5 itf minecraft primary 1M",
+                            world_ties=True),
+               compare_hits(kern, plain, *bounce1m,
+                            "traverse5 itf minecraft bounce 1M",
+                            world_ties=True))
+    times = phase_times(kern, plain, {"primary": prim1m, "bounce": bounce1m},
+                        smi, "traverse5 itf minecraft_proc")
+    b5 = bound("traverse5", scene, kern, *bounce1m,
+               "traverse5 itf minecraft_proc bounce 1M")
+    del prim1m, bounce1m
+    launches5 = phase_headline(scene, cam, smi,
+                               "minecraft_proc --shared-instances",
+                               traverse5, traverse8)
+    report["traverse5"] = dict(launches=launches5, max_abs_err=err5,
+                               times=times["bounce"], bound=b5)
+
+    print(json.dumps({"kernels": [dict(
+        name=name, route="cuda", **KERNELS[name],
+        launches=r["launches"], max_abs_err=r["max_abs_err"],
+        ms=r["times"][0], plain_ms=r["times"][1], bound_ms=r["bound"][0],
+        bound_by=r["bound"][1], library_ms=None)
+        for name, r in report.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,9 @@
 // (sycl_ray_tracer_tpu/ops/traverse_pallas8.py:371). That kernel walks
 // one shared stack per 1024-ray packet and batches the Woop leaf tests
 // into matrix-unit products. None of that carries over: here each
-// thread walks its own ray through the tree (traverse8.cuh), with the
-// per-ray stack in local memory and the leaf tests inline.
+// thread walks its own ray through the tree (bvh8_walk.cuh, with the
+// Woop leaf test of traverse8.cuh), with the per-ray stack in local
+// memory and the leaf tests inline.
 //
 // What bounds it on the card: the node table (48 floats + 8 ids per
 // internal node) and the Woop table (48 bytes per triangle slot) come
@@ -79,5 +80,6 @@ extern "C" int srt_traverse8(const void* nodes, const void* child_ids,
   return (int)cudaGetLastError();
 }
 
-// Stack depth the kernel was compiled with (checked by the wrapper).
-extern "C" int srt_traverse8_stack() { return SRT_STACK; }
+// Stack depth the library's kernels were compiled with (checked when
+// ops/kernels.py loads the library).
+extern "C" int srt_stack() { return SRT_STACK; }

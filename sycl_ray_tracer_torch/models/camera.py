@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sycl_ray_tracer_torch.ops import kernels
 from sycl_ray_tracer_torch.ops import rng as _rng
 from sycl_ray_tracer_torch.ops.vec import V3
 
@@ -27,8 +28,11 @@ class Camera(NamedTuple):
 
 
 def make_camera(width: int, height: int, position, direction,
-                focal_length: float, device="cpu") -> Camera:
-    """camera.hpp:74-106, computed in float64 numpy, stored f32."""
+                focal_length: float, device="cuda") -> Camera:
+    """camera.hpp:74-106, computed in float64 numpy, stored f32 on
+    `device`. Raises on a machine without CUDA unless given
+    device="cpu"."""
+    device = kernels.resolve_device(device)
     pos = np.asarray(position, np.float64)
     d = np.asarray(direction, np.float64)
     d = d / max(np.linalg.norm(d), 1e-20)

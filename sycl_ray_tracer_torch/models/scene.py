@@ -1,9 +1,12 @@
 """Device scene: the tables the wavefront main path reads, on one device.
 
-Built on the host from a HostScene (utils/gltf.py) and moved to
-`device` once:
+Built on the host from a HostScene (utils/gltf.py) by
+build_device_scene, or from an InstancedHostScene
+(utils/instanced.py) by models/instanced.py:build_instanced_device_scene,
+and moved to `device` (the card unless the caller asks for the CPU)
+once.
 
-Intersection (ops/traverse8.py, csrc/traverse8.cuh):
+Baked scenes, intersected by ops/traverse8.py (csrc/traverse8.cuh):
   bvh_nodes      [NI, 48] f32  SAH BVH8 child boxes, component-major
                                (8 lanes each of lo.x lo.y lo.z hi.x
                                hi.y hi.z)
@@ -14,7 +17,25 @@ Intersection (ops/traverse8.py, csrc/traverse8.cuh):
                                slot: Woop M row-major (9), then tr (3);
                                dead and padding slots can never hit
   bvh_remap      [L*8]    i64  SAH slot -> canonical Morton slot
-Shading (models/trace.py, models/materials.py), in Morton-slot order:
+Two-level instanced scenes (has_instances), intersected by
+ops/traverse5.py in itf mode (csrc/traverse5.cuh); bvh_woop is None:
+  bvh_nodes      [NI, 48] f32  one global tree: a TLAS over the
+  bvh_child_ids  [NI, 8]  i32  instances' world boxes, then per instance
+                               a copy of its primitive's local internal
+                               nodes with conservatively transformed
+                               boxes; leaf children are global leaves
+  bvh_mt         [S8, 9]  f32  shared Moller-Trumbore rows (v0, e1, e2)
+                               of every unique primitive's local SAH
+                               leaves, in local space
+  inst_leaf_slot [Lg]     i32  global leaf -> its shared leaf
+  inst_xf        [Lg, 12] f32  global leaf -> its instance's world ->
+                               local transform (M row-major, then t)
+  bvh_remap      [Lg*8]   i64  global slot -> inst * S8 + shared row
+  inst_nmat      [I, 9]   f32  per instance, the inverse transpose of
+                               its 3x3 matrix (rotates local normals to
+                               world); inst_s8 = S8
+Shading (models/trace.py, models/materials.py), in Morton-slot order
+(instanced: in shared-row order, normals in local space):
   shade_tbl      [LK, 16] f32  cols 0-8 unit vertex normals, 9-14 uv,
                                15 material id
   mat_*          [M] / [M, 3]  material tables (type, albedo, texture
@@ -31,9 +52,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from sycl_ray_tracer_torch.ops import kernels, wbvh, woop
 from sycl_ray_tracer_torch.ops import sah as _sah
-from sycl_ray_tracer_torch.ops import wbvh, woop
-from sycl_ray_tracer_torch.ops.traverse8 import STACK
 from sycl_ray_tracer_torch.utils.gltf import HostScene
 
 LEAF_SIZE = 8
@@ -43,7 +63,7 @@ LEAF_SIZE = 8
 class DeviceScene:
     bvh_nodes: torch.Tensor
     bvh_child_ids: torch.Tensor
-    bvh_woop: torch.Tensor
+    bvh_woop: torch.Tensor | None
     bvh_remap: torch.Tensor
     shade_tbl: torch.Tensor
     mat_type: torch.Tensor
@@ -61,6 +81,16 @@ class DeviceScene:
     tex_res: int
     has_textures: bool
     num_triangles: int
+    # two-level instanced scenes only (models/instanced.py)
+    bvh_mt: torch.Tensor | None = None
+    inst_leaf_slot: torch.Tensor | None = None
+    inst_xf: torch.Tensor | None = None
+    inst_nmat: torch.Tensor | None = None
+    inst_s8: int = 0
+
+    @property
+    def has_instances(self) -> bool:
+        return self.inst_xf is not None
 
 
 def _inverse_order(order: np.ndarray, n: int) -> np.ndarray:
@@ -72,18 +102,34 @@ def _inverse_order(order: np.ndarray, n: int) -> np.ndarray:
     return inv
 
 
-def build_device_scene(host: HostScene, device="cpu") -> DeviceScene:
+def check_stack(depth: int) -> None:
+    """Refuse a tree whose internal depth could overflow the kernels'
+    per-ray stack (7*depth + 1 entries)."""
+    if 7 * depth + 1 > kernels.STACK:
+        raise ValueError(
+            f"tree depth {depth} needs a traversal stack of "
+            f"{7 * depth + 1} entries; the kernels have {kernels.STACK}")
+
+
+def pack_texels(textures: np.ndarray) -> np.ndarray:
+    """[T, res, res, 4] uint8 -> [T*res*res] int32, one RGBA8 texel per
+    int32 (little-endian)."""
+    tex = textures.astype(np.uint32)
+    return (tex[..., 0] | (tex[..., 1] << 8) | (tex[..., 2] << 16)
+            | (tex[..., 3] << 24)).reshape(-1).view(np.int32)
+
+
+def build_device_scene(host: HostScene, device="cuda") -> DeviceScene:
     """SAH BVH8 build (native, host), Woop tables, shading tables in the
-    canonical Morton order, all moved to `device` once."""
+    canonical Morton order, all moved to `device` once. Raises on a
+    machine without CUDA unless given device="cpu"."""
+    device = kernels.resolve_device(device)
     n = host.num_triangles
     if n == 0:
         raise ValueError("scene has no triangles")
     k = LEAF_SIZE
     sahb = _sah.build_sah(host.tri_v, k)
-    if 7 * sahb.depth + 1 > STACK:
-        raise ValueError(
-            f"SAH tree depth {sahb.depth} needs a traversal stack of "
-            f"{7 * sahb.depth + 1} entries; the kernel has {STACK}")
+    check_stack(sahb.depth)
     rows = _sah.leaf_rows(host.tri_v, sahb.order, k)
     M, tr, _ = woop.woop_from_leaf_rows(rows, k)
     woop_tbl = np.concatenate([M.reshape(-1, 9), tr.reshape(-1, 3)], axis=1)
@@ -108,9 +154,6 @@ def build_device_scene(host: HostScene, device="cpu") -> DeviceScene:
     shade = np.concatenate([tri_n.reshape(lk, 9), tri_uv.reshape(lk, 6),
                             tri_mat[:, None]], axis=1)
 
-    tex = host.textures.astype(np.uint32)
-    packed = (tex[..., 0] | (tex[..., 1] << 8) | (tex[..., 2] << 16)
-              | (tex[..., 3] << 24)).reshape(-1).view(np.int32)
     m = host.materials
     verts = host.tri_v.reshape(-1, 3)
 
@@ -130,7 +173,7 @@ def build_device_scene(host: HostScene, device="cpu") -> DeviceScene:
         mat_rough=dev(m.roughness, torch.float32),
         mat_ior=dev(m.ior, torch.float32),
         mat_emissive=dev(m.emissive, torch.float32),
-        tex_packed=dev(packed),
+        tex_packed=dev(pack_texels(host.textures)),
         sky_color=dev(host.sky_color, torch.float32),
         scene_lo=dev(verts.min(0), torch.float32),
         scene_hi=dev(verts.max(0), torch.float32),

@@ -86,3 +86,13 @@ def leaf_rows(tri_v: np.ndarray, order: np.ndarray, leaf_size: int
     comps = np.concatenate([v0, e1, e2], axis=1)       # [L*K, 9]
     l = order.shape[0] // k
     return comps.reshape(l, k, 9).transpose(0, 2, 1).reshape(l, 9 * k)
+
+
+def slot_rows(leaf_rows: np.ndarray, leaf_size: int) -> np.ndarray:
+    """[L, 9K] component-major leaf rows -> [L*K, 9] f32, one
+    (v0, e1, e2) row per triangle slot: the MT table of
+    ops/traverse5.py."""
+    k = leaf_size
+    return np.ascontiguousarray(
+        leaf_rows.reshape(-1, 9, k).transpose(0, 2, 1).reshape(-1, 9),
+        np.float32)

@@ -1,0 +1,85 @@
+"""The level-synchronous BVH8 walk in plain torch, generic over the leaf
+test: the body of traverse8_plain (Woop leaves) and traverse5_plain
+(Moller-Trumbore leaves, optionally instance-transformed).
+
+It computes the function of the kernels' per-ray walk
+(csrc/bvh8_walk.cuh) over all rays at once: each level slab-tests all
+8 children of every (ray, node) pair, tests the accepted leaves, folds
+the per-ray minimum into t_best with scatter_reduce("amin"), and
+descends into the accepted internal children. The order of the walk
+differs from the kernel's depth-first one, so equal-t ties between
+leaves may resolve differently; everything else agrees bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sycl_ray_tracer_torch.ops.intersect import BIG, TNEAR, Hit
+from sycl_ray_tracer_torch.ops.vec import V3
+
+
+def walk_plain(nodes: torch.Tensor, child_ids: torch.Tensor, ni: int,
+               o: V3, d: V3, active, t_init, leaf_test) -> Hit:
+    """leaf_test(ray_idx [Q] i64, leaf [Q] i64, t_best [Q, 1]) ->
+    (t, u, v, hit), each [Q, 8]: the 8 slots of leaf `leaf` against
+    ray `ray_idx`."""
+    dev = o.x.device
+    r = o.x.shape[0]
+    act = (torch.ones((r,), dtype=torch.bool, device=dev) if active is None
+           else active)
+    t0 = (torch.full((r,), BIG, dtype=torch.float32, device=dev)
+          if t_init is None else t_init)
+    tb = torch.where(act, t0, torch.full_like(t0, -BIG))
+    tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros((r,), dtype=torch.float32, device=dev)
+    v = torch.zeros((r,), dtype=torch.float32, device=dev)
+    inv = [torch.where(c.abs() > 1e-20, 1.0 / c, torch.full_like(c, 1e20))
+           for c in d]
+    inf = float("inf")
+
+    ray = act.nonzero().squeeze(1)
+    node = torch.zeros_like(ray)
+    while ray.numel():
+        box = nodes[node].view(-1, 6, 8)
+        ids = child_ids[node]
+        oc = [c[ray][:, None] for c in o]
+        ic = [c[ray][:, None] for c in inv]
+        t1 = [(box[:, a] - oc[a]) * ic[a] for a in range(3)]
+        t2 = [(box[:, 3 + a] - oc[a]) * ic[a] for a in range(3)]
+        tmin = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]),
+                                           torch.minimum(t1[1], t2[1])),
+                             torch.minimum(t1[2], t2[2]))
+        tmax = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]),
+                                           torch.maximum(t1[1], t2[1])),
+                             torch.maximum(t1[2], t2[2]))
+        ok = ((tmax >= torch.clamp(tmin, min=TNEAR))
+              & (tmin < tb[ray][:, None]) & (ids != 0))
+        is_leaf = ids >= ni
+
+        lp, lj = (ok & is_leaf).nonzero(as_tuple=True)
+        if lp.numel():
+            lray = ray[lp]
+            leaf = (ids[lp, lj] - ni).to(torch.int64)
+            tt, uu, vv, hit = leaf_test(lray, leaf, tb[lray][:, None])
+            tq, sq = torch.where(hit, tt, inf).min(dim=1)   # lowest slot
+            best = torch.full((r,), inf, dtype=torch.float32, device=dev)
+            best.scatter_reduce_(0, lray, tq, "amin")
+            win = (tq < inf) & (tq == best[lray])
+            q = torch.arange(lray.numel(), device=dev)
+            pick = torch.full((r,), lray.numel(), dtype=torch.int64,
+                              device=dev)
+            pick.scatter_reduce_(0, lray[win], q[win], "amin")
+            rw = (pick < lray.numel()).nonzero().squeeze(1)
+            qs = pick[rw]
+            sqs = sq[qs]
+            tb[rw] = tq[qs]
+            tri[rw] = (leaf[qs] * 8 + sqs).to(torch.int32)
+            u[rw] = uu[qs, sqs]
+            v[rw] = vv[qs, sqs]
+
+        ip, ij = (ok & ~is_leaf).nonzero(as_tuple=True)
+        ray = ray[ip]
+        node = ids[ip, ij].to(torch.int64)
+    t = torch.where(act, tb, torch.zeros_like(tb))
+    return Hit(t=t, tri=tri, u=u, v=v)

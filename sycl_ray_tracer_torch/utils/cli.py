@@ -11,9 +11,15 @@ Flags match main.cpp:11-28 (-d/--max-depth default 10, -s/--sample-count
 default 32, positional scene path defaulting to ./assets/sponza.glb; a
 missing file is an error). --width/--height lift the reference's
 hardcoded 1920x1080 (main.cpp:36). Additions: --seed, --output, --rr,
---warmup, --device, and procedural scene names (sponza_proc /
-minecraft_proc / triangle / cube / dielectric) for when no .glb is at
-hand.
+--warmup, --device, --shared-instances, and procedural scene names
+(sponza_proc / minecraft_proc / instanced_proc / triangle / cube /
+dielectric) for when no .glb is at hand.
+
+--shared-instances loads the scene two-level, as the reference's
+Embree BLAS per primitive + TLAS of instances (scene.cpp:404-439): one
+copy of each unique primitive, one transform per instance
+(utils/instanced.py, models/instanced.py), intersected by the traverse5
+kernel. Without it every instance is baked to world space.
 
 Only the wavefront engine is ported; -m raises. The default device is
 cuda, and a machine without CUDA is an error: the CPU runs only when
@@ -36,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Monte-Carlo path tracer (PyTorch + CUDA)")
     p.add_argument("scene_path", nargs="?", default=DEFAULT_SCENE,
                    help="path to .glb, or a procedural name: sponza_proc, "
-                        "minecraft_proc, triangle, cube, dielectric")
+                        "minecraft_proc, instanced_proc, triangle, cube, "
+                        "dielectric")
     p.add_argument("-d", "--max-depth", type=int, default=10)
     p.add_argument("-s", "--sample-count", type=int, default=32)
     p.add_argument("-m", "--megakernel", action="store_true",
@@ -52,6 +59,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run one untimed frame first (kernel build, "
                         "allocator warm-up)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--shared-instances", action="store_true",
+                   help="two-level instancing: one copy of each unique "
+                        "primitive plus per-instance transforms, instead "
+                        "of baking every instance")
     return p
 
 
@@ -64,6 +75,7 @@ def resolve_scene_bytes(scene_path: str) -> bytes:
         "dielectric": fixtures.dielectric_scene_glb,
         "sponza_proc": procgen.sponza_like_glb,
         "minecraft_proc": procgen.minecraft_like_glb,
+        "instanced_proc": fixtures.instanced_scene_glb,
     }
     if scene_path in named:
         return named[scene_path]()
@@ -73,6 +85,32 @@ def resolve_scene_bytes(scene_path: str) -> bytes:
             f"(procedural names: {', '.join(sorted(named))})")
     with open(scene_path, "rb") as f:
         return f.read()
+
+
+def load_scene(scene_bytes: bytes, device, shared_instances: bool):
+    """(DeviceScene, host) for a .glb, baked or two-level; `host` has
+    the camera and sky fields. Prints the triangle counts."""
+    if shared_instances:
+        from sycl_ray_tracer_torch.models.instanced import (
+            build_instanced_device_scene)
+        from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
+
+        host = load_glb_instanced(scene_bytes)
+        print(f"Triangles: {host.num_world_triangles} "
+              f"({host.num_unique_triangles} unique x "
+              f"{host.num_instances} instances)")
+        scene = build_instanced_device_scene(host, device=device)
+        print(f"Instanced tree: {scene.sah_ni} internal nodes, "
+              f"{scene.inst_leaf_slot.shape[0]} leaves, depth "
+              f"{scene.bvh_depth}")
+        return scene, host
+
+    from sycl_ray_tracer_torch.models.scene import build_device_scene
+    from sycl_ray_tracer_torch.utils.gltf import load_glb
+
+    host = load_glb(scene_bytes)
+    print(f"Triangles: {host.num_triangles}")
+    return build_device_scene(host, device=device), host
 
 
 def main(argv=None) -> int:
@@ -88,15 +126,12 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
 
     from sycl_ray_tracer_torch.models.camera import make_camera
-    from sycl_ray_tracer_torch.models.scene import build_device_scene
     from sycl_ray_tracer_torch.models.wavefront import render_wavefront
-    from sycl_ray_tracer_torch.utils.gltf import load_glb
     from sycl_ray_tracer_torch.utils.image_io import write_png
 
     print(f"Loading scene: {args.scene_path}")
-    host = load_glb(resolve_scene_bytes(args.scene_path))
-    print(f"Triangles: {host.num_triangles}")
-    scene = build_device_scene(host, device=device)
+    scene, host = load_scene(resolve_scene_bytes(args.scene_path), device,
+                             args.shared_instances)
     cam = make_camera(args.width, args.height, host.camera_position,
                       host.camera_direction, host.camera_focal_length,
                       device=device)

@@ -185,3 +185,59 @@ def textured_scene_glb() -> bytes:
 
 def _quat_from_euler_x(rx: float):
     return [np.sin(rx / 2), 0.0, 0.0, np.cos(rx / 2)]
+
+
+def instanced_scene_glb(r: int = 1000, seed: int = 5) -> bytes:
+    """Instance-heavy fixture: r glTF NODES all referencing ONE
+    12-triangle cube mesh, scattered on a grid with per-node TRS, plus
+    a floor, a lamp and a camera. It is the minecraft-style workload
+    the reference handles with one shared Embree BLAS + per-instance
+    transforms (scene.cpp:435-439, 487-493): the port renders it baked
+    (utils/gltf.py) or two-level (utils/instanced.py,
+    models/instanced.py)."""
+    rs = np.random.RandomState(seed)
+    b = GlbBuilder()
+    floor_m = b.add_material(base_color=(0.55, 0.55, 0.55),
+                             name="floor")
+    inst_m = b.add_material(base_color=(0.7, 0.45, 0.3),
+                            metallic=0.2, roughness=0.5, name="block")
+    light_m = b.add_material(base_color=(1, 1, 1),
+                             emissive=(1.0, 0.95, 0.8),
+                             emissive_strength=4.0, name="light")
+
+    side = max(1.0, np.sqrt(r) * 1.6)
+    p, n, uv, idx = _quad((0, 0, 0), side, axis=1)
+    b.add_node(mesh=b.add_mesh(p, n, uv, idx, floor_m))
+
+    v = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (0, 1)
+                  for z in (-0.5, 0.5)], np.float32)
+    faces = np.array([
+        [0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],
+        [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
+        [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3],
+    ], np.uint32)
+    ctr = v.mean(0)
+    nrm = (v - ctr)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    cube = b.add_mesh(v, nrm.astype(np.float32),
+                      np.zeros((8, 2), np.float32),
+                      faces.reshape(-1), inst_m)
+
+    g = int(np.ceil(np.sqrt(r)))
+    for i in range(r):
+        gx, gz = i % g, i // g
+        tx = (gx - g / 2) * 1.5 + rs.uniform(-0.3, 0.3)
+        tz = (gz - g / 2) * 1.5 + rs.uniform(-0.3, 0.3)
+        ry = rs.uniform(0, np.pi)
+        s = rs.uniform(0.4, 1.0)
+        b.add_node(mesh=cube, translation=[tx, 0.001, tz],
+                   rotation=[0.0, np.sin(ry / 2), 0.0, np.cos(ry / 2)],
+                   scale=[s, s * rs.uniform(0.5, 2.0), s])
+
+    p, n, uv, idx = _quad((0, 6.0, 0), 3.0, axis=1)
+    b.add_node(mesh=b.add_mesh(p, -n, uv, idx, light_m))
+    b.add_node(camera=b.add_camera(yfov=np.deg2rad(55)),
+               translation=[0, 3.0, side * 0.55],
+               rotation=_quat_from_euler_x(-0.35))
+    b.set_sky((0.45, 0.55, 0.8), strength=0.5)
+    return b.tobytes()

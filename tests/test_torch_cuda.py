@@ -1,6 +1,7 @@
-"""Tests of the port that need the card: the CUDA kernel against its
-plain version, the wrapper's input checks, and a small render on cuda
-against the same render on the cpu. They skip without a CUDA device.
+"""Tests of the port that need the card: the CUDA kernels against their
+plain versions, the wrappers' input checks, and small renders (baked and
+two-level instanced) on cuda against the same renders on the cpu. They
+skip without a CUDA device.
 This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -10,8 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from sycl_ray_tracer_torch.models.instanced import (
+    build_instanced_device_scene)
 from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+from sycl_ray_tracer_torch.ops import sah as tsah
+from sycl_ray_tracer_torch.ops import traverse5 as t5
 from sycl_ray_tracer_torch.ops import traverse8 as t8
+from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
 from sycl_ray_tracer_torch.ops.vec import V3
 from sycl_ray_tracer_torch.utils import fixtures as tfix
 from sycl_ray_tracer_torch.utils import procgen as tproc
@@ -99,6 +105,94 @@ def test_render_cuda_matches_cpu(cuda):
         img, rays = render_wavefront(scene, cam, **kw)
         out.append((img.cpu().numpy(), rays.numpy()))
     (a, ra), (b, rb) = out
+    assert (np.abs(ra - rb) <= np.maximum(16, 0.005 * rb)).all()
+    d = np.abs(a - b).max(axis=-1)
+    assert (d > 0.05).mean() < 5e-3
+    assert float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2))) < 4e-3
+
+
+def _t5_tables(mode, dev):
+    """traverse5's tables on `dev`: MT mode on the baked SAH tree of
+    sponza scale 1, itf mode on the instanced fixture (r = 200)."""
+    if mode == "mt":
+        host = load_glb(tproc.sponza_like_glb(scale=1))
+        scene = build_device_scene(host, device=dev)
+        order = tsah.build_sah(host.tri_v, 8).order
+        mt = torch.from_numpy(tsah.slot_rows(
+            tsah.leaf_rows(host.tri_v, order, 8), 8)).to(dev)
+        return (scene.bvh_nodes, scene.bvh_child_ids, mt, scene.sah_ni,
+                {}), host.tri_v.reshape(-1, 3)
+    ih = load_glb_instanced(tfix.instanced_scene_glb(200))
+    scene = build_instanced_device_scene(ih, device=dev)
+    return (scene.bvh_nodes, scene.bvh_child_ids, scene.bvh_mt,
+            scene.sah_ni, dict(leaf_slot=scene.inst_leaf_slot,
+                               leaf_xf=scene.inst_xf)), ih.inst_mat[:, :3, 3]
+
+
+@pytest.mark.parametrize("mode", ["mt", "itf"])
+def test_traverse5_kernel_matches_plain(cuda, mode):
+    """As test_kernel_matches_plain, for traverse5 in both modes."""
+    (nodes, ids, mt, ni, kw), pts = _t5_tables(mode, cuda)
+    rs = np.random.RandomState(13)
+    r = 8192
+    o = rs.uniform(pts.min(0), pts.max(0), (r, 3)).astype(np.float32)
+    d = rs.randn(r, 3).astype(np.float32)
+    t = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(
+        cuda) for i in range(3)))
+    args = (nodes, ids, mt, ni, t(o), t(d))
+    before = t5.traverse5.launches
+    k = t5.traverse5(*args, **kw)
+    assert t5.traverse5.launches == before + 1
+    p = t5.traverse5_plain(*args, **kw)
+    hit = p.tri >= 0
+    assert 0.2 < float(hit.float().mean()) < 1.0
+    assert bool(((k.tri >= 0) == hit).all())
+    tie = (k.t - p.t).abs() <= 1e-6 * p.t.abs()
+    assert not bool((hit & (k.tri != p.tri) & ~tie).any())
+    assert torch.allclose(k.t, p.t, rtol=1e-4)
+    same = hit & (k.tri == p.tri)
+    assert torch.allclose(k.u[same], p.u[same], atol=1e-4)
+    assert torch.allclose(k.v[same], p.v[same], atol=1e-4)
+    assert bool((t5.traverse5(*args, t_init=k.t, **kw).tri == -1).all())
+    active = torch.rand(r, device=cuda) < 0.5
+    k3 = t5.traverse5(*args, active=active, **kw)
+    assert bool((k3.t[~active] == 0).all())
+    assert bool((k3.tri[~active] == -1).all())
+    assert bool((k3.tri[active] == k.tri[active]).all())
+
+
+def test_traverse5_wrapper_rejects_bad_inputs(cuda):
+    (nodes, ids, mt, ni, kw), _ = _t5_tables("itf", cuda)
+    o = V3(*(torch.zeros(64, device=cuda) for _ in range(3)))
+    d = V3(*(torch.ones(64, device=cuda) for _ in range(3)))
+    with pytest.raises(ValueError):
+        t5.traverse5(nodes, ids, mt[:-1], ni, o, d, **kw)
+    with pytest.raises(ValueError):
+        t5.traverse5(nodes, ids, mt, ni, o, d,
+                     leaf_slot=kw["leaf_slot"].long(), leaf_xf=kw["leaf_xf"])
+    with pytest.raises(ValueError):
+        t5.traverse5(nodes, ids, mt, ni, o, d, leaf_slot=kw["leaf_slot"],
+                     leaf_xf=kw["leaf_xf"][:, :9].contiguous())
+    with pytest.raises(ValueError):
+        t5.traverse5(nodes, ids, mt, ni, o, d, leaf_slot=kw["leaf_slot"])
+    with pytest.raises(ValueError):
+        t5.traverse5(nodes, ids, mt, ni, V3(o.x.cpu(), o.y, o.z), d, **kw)
+
+
+def test_instanced_render_cuda_matches_cpu(cuda):
+    ih = load_glb_instanced(tfix.instanced_scene_glb(30))
+    kw = dict(width=48, height=48, spp=8, max_depth=6, seed=4)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        scene = build_instanced_device_scene(ih, device=dev)
+        cam = make_camera(48, 48, ih.camera_position, ih.camera_direction,
+                          ih.camera_focal_length, device=dev)
+        before = t5.traverse5.launches
+        img, rays = render_wavefront(scene, cam, **kw)
+        launched = t5.traverse5.launches - before
+        out.append((img.cpu().numpy(), rays.numpy(), launched))
+    (a, ra, la), (b, rb, lb) = out
+    assert la == int((ra > 0).sum()) and lb == 0
     assert (np.abs(ra - rb) <= np.maximum(16, 0.005 * rb)).all()
     d = np.abs(a - b).max(axis=-1)
     assert (d > 0.05).mean() < 5e-3

@@ -147,7 +147,7 @@ def test_device_scene_tables_match_jax():
 
     jh, th = _hosts("sponza1")
     js = jbuild(jh, leaf_size=8)
-    ts = build_device_scene(th)
+    ts = build_device_scene(th, device="cpu")
     assert js.has_sah and ts.sah_ni == js.sah_ni
     assert (np.asarray(js.bvh_remap) == ts.bvh_remap.numpy()).all()
     assert (np.asarray(js.shade_tbl) == ts.shade_tbl.numpy()).all()
@@ -171,11 +171,11 @@ def test_stack_bound_matches_header():
     import os
     import re
 
-    from sycl_ray_tracer_torch.ops import traverse8 as t8
+    from sycl_ray_tracer_torch.ops import kernels
 
-    with open(os.path.join(t8.CSRC, "traverse8.cuh")) as f:
+    with open(os.path.join(kernels.CSRC, "bvh8_walk.cuh")) as f:
         m = re.search(r"#define SRT_STACK (\d+)", f.read())
-    assert int(m.group(1)) == t8.STACK
+    assert int(m.group(1)) == kernels.STACK
     _, th = _hosts("sponza1")
-    ts = build_device_scene(th)
-    assert 7 * ts.bvh_depth + 1 <= t8.STACK
+    ts = build_device_scene(th, device="cpu")
+    assert 7 * ts.bvh_depth + 1 <= kernels.STACK

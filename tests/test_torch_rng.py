@@ -82,7 +82,7 @@ def test_generate_rays_match_numpy_twin():
     w, h = 160, 90
     pos, dirn = (0.3, 2.2, 28.0), (0.05, -0.1, -1.0)
     jc = jcam.make_camera(w, h, pos, dirn, 1.7)
-    tc = tcam.make_camera(w, h, pos, dirn, 1.7)
+    tc = tcam.make_camera(w, h, pos, dirn, 1.7, device="cpu")
     for a, b in zip(jc[:4], tc[:4]):
         assert (np.asarray(a) == b.numpy()).all()
     pix = np.arange(w * h, dtype=np.int64)

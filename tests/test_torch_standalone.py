@@ -20,14 +20,20 @@ _MAIN_PATH_MODULES = [
     "sycl_ray_tracer_torch.utils.native_loader",
     "sycl_ray_tracer_torch.utils.procgen",
     "sycl_ray_tracer_torch.utils.fixtures",
+    "sycl_ray_tracer_torch.utils.instanced",
     "sycl_ray_tracer_torch.utils.image_io",
     "sycl_ray_tracer_torch.utils.png",
     "sycl_ray_tracer_torch.ops.sah",
     "sycl_ray_tracer_torch.ops.wbvh",
     "sycl_ray_tracer_torch.ops.woop",
     "sycl_ray_tracer_torch.ops.rng",
+    "sycl_ray_tracer_torch.ops.kernels",
+    "sycl_ray_tracer_torch.ops.walk",
     "sycl_ray_tracer_torch.ops.traverse8",
+    "sycl_ray_tracer_torch.ops.traverse5",
+    "sycl_ray_tracer_torch.models.camera",
     "sycl_ray_tracer_torch.models.scene",
+    "sycl_ray_tracer_torch.models.instanced",
     "sycl_ray_tracer_torch.models.trace",
     "sycl_ray_tracer_torch.models.materials",
     "sycl_ray_tracer_torch.models.wavefront",
@@ -81,9 +87,9 @@ glb = sponza_like_glb(scale=1)
 host = load_glb(glb)
 assert host.textures.any()
 assert host.textures.shape == (8, 512, 512, 4)
-scene = build_device_scene(host)
+scene = build_device_scene(host, device="cpu")
 cam = make_camera(32, 24, host.camera_position, host.camera_direction,
-                  host.camera_focal_length)
+                  host.camera_focal_length, device="cpu")
 img, rays = render_wavefront(scene, cam, width=32, height=24, spp=1,
                              max_depth=3)
 write_png({str(out)!r}, img.numpy())
@@ -98,7 +104,20 @@ except NotImplementedError as e:
     assert "image 0" in str(e) and "64x64" in str(e), e
 else:
     raise AssertionError("resize without Pillow did not raise")
+# the two-level instanced path too
+from sycl_ray_tracer_torch.utils.fixtures import instanced_scene_glb
+from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
+from sycl_ray_tracer_torch.models.instanced import (
+    build_instanced_device_scene)
+ih = load_glb_instanced(instanced_scene_glb(8))
+iscene = build_instanced_device_scene(ih, device="cpu")
+icam = make_camera(16, 12, ih.camera_position, ih.camera_direction,
+                   ih.camera_focal_length, device="cpu")
+img, rays = render_wavefront(iscene, icam, width=16, height=12, spp=1,
+                             max_depth=2)
+assert rays[0] == 16 * 12 and np.isfinite(img.numpy()).all()
 assert "PIL" not in sys.modules
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
 print("ok")
 """
     p = _run(code, timeout=240)

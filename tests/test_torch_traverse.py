@@ -1,9 +1,9 @@
-"""Port intersector (ops/traverse8.py): the plain torch version against
-the JAX package's Woop reference and CPU traversal, and the kernel's own
-per-ray walk (csrc/traverse8.cuh, built here with g++) against the plain
-version."""
+"""Port intersectors (ops/traverse8.py, ops/traverse5.py): the plain
+torch versions against the JAX package's Woop reference and CPU
+traversal, and the kernels' own per-ray walks (csrc/bvh8_walk.cuh with
+the leaf tests of traverse8.cuh and traverse5.cuh, built here with g++)
+against the plain versions."""
 
-import ctypes
 import shutil
 
 import numpy as np
@@ -12,8 +12,13 @@ import torch
 
 from sycl_ray_tracer_tpu.ops import woop as jwoop
 from sycl_ray_tracer_torch.models import trace as ttrace
+from sycl_ray_tracer_torch.models.instanced import (
+    build_instanced_device_scene)
+from sycl_ray_tracer_torch.ops import kernels
 from sycl_ray_tracer_torch.ops import sah as tsah
+from sycl_ray_tracer_torch.ops import traverse5 as t5
 from sycl_ray_tracer_torch.ops import traverse8 as t8
+from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
 from sycl_ray_tracer_torch.utils import fixtures as tfix
 from sycl_ray_tracer_torch.utils import procgen as tproc
 
@@ -138,28 +143,13 @@ def test_plain_matches_jax_cpu_traversal_on_sponza():
 def _host_lib():
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
-    lib = ctypes.CDLL(t8.build_host_library())
-    lib.srt_traverse8_host.restype = None
-    lib.srt_traverse8_host.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int32] + [ctypes.c_void_p] * 12
-        + [ctypes.c_int64])
-    lib.srt_traverse8_stack.restype = ctypes.c_int
-    assert lib.srt_traverse8_stack() == t8.STACK
-    return lib
+    kernels.load_host_library()
 
 
-def _host_traverse(lib, scene, o, d, active=None, t_init=None):
-    r = o.shape[0]
-    ox, dx = tv3(o), tv3(d)
-    out = (torch.empty(r), torch.empty(r, dtype=torch.int32),
-           torch.empty(r), torch.empty(r))
-    ptr = (lambda x: None if x is None else x.data_ptr())
-    lib.srt_traverse8_host(
-        scene.bvh_nodes.data_ptr(), scene.bvh_child_ids.data_ptr(),
-        scene.bvh_woop.data_ptr(), scene.sah_ni,
-        *(c.data_ptr() for c in (*ox, *dx)), ptr(active), ptr(t_init),
-        *(x.data_ptr() for x in out), r)
-    return out
+def _host_traverse(scene, o, d, active=None, t_init=None):
+    return kernels.run_host(
+        "traverse8", [scene.bvh_nodes, scene.bvh_child_ids, scene.bvh_woop,
+                      scene.sah_ni], tv3(o), tv3(d), active, t_init)
 
 
 @pytest.mark.parametrize("name,r", [("cube", 1024), ("sponza", 4096)])
@@ -167,10 +157,10 @@ def test_kernel_walk_host_build_matches_plain(name, r):
     """The per-ray walk the CUDA kernel runs, compiled for the CPU: tri
     ids equal outside 1e-6-relative t ties, t rtol 1e-4, u/v atol 1e-4,
     plus the t_init and inactive-lane semantics."""
-    lib = _host_lib()
+    _host_lib()
     host, scene, _ = _pair(name)
     o, d = _rays(host, r, 11)
-    t, tri, u, v = _host_traverse(lib, scene, o, d)
+    t, tri, u, v = _host_traverse(scene, o, d)
     p = t8.traverse8_plain(*_args(scene, o, d))
     assert ((tri >= 0) == (p.tri >= 0)).all()
     hit = p.tri >= 0
@@ -182,10 +172,10 @@ def test_kernel_walk_host_build_matches_plain(name, r):
     np.testing.assert_allclose(v.numpy()[same], p.v.numpy()[same], atol=1e-4)
     assert (u[~hit] == 0).all() and (v[~hit] == 0).all()
 
-    _, tri2, _, _ = _host_traverse(lib, scene, o, d, t_init=t)
+    _, tri2, _, _ = _host_traverse(scene, o, d, t_init=t)
     assert (tri2 == -1).all()
     active = torch.from_numpy(np.random.RandomState(2).rand(r) < 0.5)
-    t3, tri3, u3, v3 = _host_traverse(lib, scene, o, d, active=active)
+    t3, tri3, u3, v3 = _host_traverse(scene, o, d, active=active)
     ina = ~active
     assert (t3[ina] == 0).all() and (tri3[ina] == -1).all()
     assert (u3[ina] == 0).all() and (v3[ina] == 0).all()
@@ -200,3 +190,105 @@ def test_wrapper_rejects_non_cpu_non_cuda_and_checks_stack():
                                    scene.bvh_woop)]
     with pytest.raises(ValueError):
         t8.traverse8(*meta, scene.sah_ni, tv3(o), tv3(d))
+
+
+def _mt_tables(name):
+    """(tables of traverse5 as a list, host scene, itf keyword args):
+    MT mode on the baked SAH tree of sponza scale 1 (rows from
+    sah.leaf_rows), itf mode on the port's instanced fixture tables."""
+    if name == "mt":
+        host, scene, _ = _pair("sponza")
+        order = tsah.build_sah(host.tri_v, 8).order
+        mt = torch.from_numpy(tsah.slot_rows(
+            tsah.leaf_rows(host.tri_v, order, 8), 8))
+        return [scene.bvh_nodes, scene.bvh_child_ids, mt, None, None,
+                scene.sah_ni], host.tri_v.reshape(-1, 3)
+    ih = load_glb_instanced(tfix.instanced_scene_glb(30))
+    ts = build_instanced_device_scene(ih, device="cpu")
+    return [ts.bvh_nodes, ts.bvh_child_ids, ts.bvh_mt, ts.inst_leaf_slot,
+            ts.inst_xf, ts.sah_ni], ih.inst_mat[:, :3, 3]
+
+
+@pytest.mark.parametrize("mode", ["mt", "itf"])
+def test_traverse5_walk_host_build_matches_plain(mode):
+    """The traverse5 kernel's per-ray walk, compiled for the CPU, against
+    traverse5_plain in both modes: tri ids equal outside 1e-6-relative
+    t ties, t rtol 1e-4, u/v atol 1e-4, t_init and inactive lanes."""
+    _host_lib()
+    tables, pts = _mt_tables(mode)
+    nodes, ids, mt, slot, xf, ni = tables
+    r = 4096
+    rs = np.random.RandomState(21)
+    o = rs.uniform(pts.min(0), pts.max(0), (r, 3)).astype(np.float32)
+    d = rs.randn(r, 3).astype(np.float32)
+    t, tri, u, v = kernels.run_host("traverse5", tables, tv3(o), tv3(d))
+    p = t5.traverse5_plain(nodes, ids, mt, ni, tv3(o), tv3(d),
+                           leaf_slot=slot, leaf_xf=xf)
+    hit = p.tri >= 0
+    assert ((tri >= 0) == hit).all()
+    assert 0.2 < hit.float().mean() < 1.0
+    tie = (t - p.t).abs() <= 1e-6 * p.t.abs()
+    assert not (hit & (tri != p.tri) & ~tie).any()
+    np.testing.assert_allclose(t.numpy(), p.t.numpy(), rtol=1e-4)
+    same = (hit & (tri == p.tri)).numpy()
+    np.testing.assert_allclose(u.numpy()[same], p.u.numpy()[same], atol=1e-4)
+    np.testing.assert_allclose(v.numpy()[same], p.v.numpy()[same], atol=1e-4)
+    assert (u[~hit] == 0).all() and (v[~hit] == 0).all()
+
+    _, tri2, _, _ = kernels.run_host("traverse5", tables, tv3(o), tv3(d),
+                                     t_init=t)
+    assert (tri2 == -1).all()
+    active = torch.from_numpy(rs.rand(r) < 0.5)
+    t3, tri3, u3, v3 = kernels.run_host("traverse5", tables, tv3(o), tv3(d),
+                                        active=active)
+    ina = ~active
+    assert (t3[ina] == 0).all() and (tri3[ina] == -1).all()
+    assert (u3[ina] == 0).all() and (v3[ina] == 0).all()
+    assert (tri3[active] == tri[active]).all()
+    assert (t3[active] == t[active]).all()
+
+
+@pytest.mark.parametrize("mode", ["mt", "itf"])
+def test_traverse5_walk_host_build_counts_its_work(mode):
+    """The host walk's counts (the work chip_smoke.py's bound counts): a
+    ray leaving the scene tests the root's child boxes and no leaf, an
+    inactive ray counts nothing, and counts add up over batches."""
+    _host_lib()
+    tables, pts = _mt_tables(mode)
+    ids = tables[1]
+    r = 512
+    rs = np.random.RandomState(5)
+    o = rs.uniform(pts.min(0), pts.max(0), (r, 3)).astype(np.float32)
+    d = rs.randn(r, 3).astype(np.float32)
+
+    def counts(o, d, active=None):
+        c = torch.zeros(2, dtype=torch.int64)
+        hit = kernels.run_host("traverse5", tables, tv3(o), tv3(d),
+                               active=active, counts=c)
+        return c.tolist(), hit
+
+    away = np.array([[1e6, 1e6, 1e6]], np.float32)
+    assert counts(away, away)[0] == [int((ids[0] != 0).sum()), 0]
+    assert counts(o, d, active=torch.zeros(r, dtype=torch.bool))[0] == [0, 0]
+    (boxes, leaves), hit = counts(o, d)
+    half = [counts(o[s], d[s])[0] for s in (slice(0, r // 2),
+                                             slice(r // 2, r))]
+    assert [boxes, leaves] == [a + b for a, b in zip(*half)]
+    assert leaves >= int((hit.tri >= 0).sum()) and boxes > leaves
+
+
+def test_traverse5_wrapper_checks_inputs():
+    tables, _ = _mt_tables("itf")
+    nodes, ids, mt, slot, xf, ni = tables
+    o = tv3(np.zeros((8, 3), np.float32))
+    d = tv3(np.ones((8, 3), np.float32))
+    with pytest.raises(ValueError, match="go together"):
+        t5.traverse5(nodes, ids, mt, ni, o, d, leaf_slot=slot)
+    meta = [x.to("meta") for x in (nodes, ids, mt)]
+    with pytest.raises(ValueError):
+        t5.traverse5(*meta, ni, o, d)
+    # a CPU tensor runs the plain version, and counts no launch
+    before = t5.traverse5.launches
+    hit = t5.traverse5(nodes, ids, mt, ni, o, d, leaf_slot=slot,
+                       leaf_xf=xf)
+    assert t5.traverse5.launches == before and hit.t.shape == (8,)

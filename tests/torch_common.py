@@ -37,7 +37,8 @@ def np3(v) -> np.ndarray:
 def port_pair(glb: bytes, width: int = 64, height: int = 64):
     """(HostScene, DeviceScene, Camera) of the port, on the CPU."""
     host = load_glb(glb)
-    scene = build_device_scene(host)
+    scene = build_device_scene(host, device="cpu")
     cam = make_camera(width, height, host.camera_position,
-                      host.camera_direction, host.camera_focal_length)
+                      host.camera_direction, host.camera_focal_length,
+                      device="cpu")
     return host, scene, cam
