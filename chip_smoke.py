@@ -24,31 +24,50 @@ Phases (any failure raises and exits non-zero):
    port, compared with the flip-tolerant image gate;
 7. the baked headline render: sponza_proc scale 2, 1024x1024, 64 spp,
    depth 10, after an untimed 1-spp warm-up with another seed; checks
-   that every bounce launched traverse8 once (and traverse5 never) and
-   that the image is finite and not black;
-8. instanced against baked: instanced_proc (r = 1000), 512x512, depth
+   that every bounce launched traverse8 once (and traverse5 and
+   traverse1 never) and that the image is finite and not black;
+8. the megakernel headline: render_megakernel on the same scene, as 7;
+   traverse8 launches once per bounce of each wave, and the per-bounce
+   tallies equal those of 7 (same scene and seed);
+9. traverse1 against plain on sponza_proc scale 2 built with
+   leaf_size=4 (the Morton heap): 65,536 primary and 65,536
+   first-bounce rays, then 1M of each, with the rules of 3 (v1 has no
+   t_init); the times of kernel and plain at 1M rays, and the bound of
+   the 1M bounce launch as in 4;
+10. traverse1 against the SAH tree of the same host on the same rays,
+   after its bvh_remap: Morton slot ids do not depend on the leaf size.
+   Against traverse5 in MT mode (the same arithmetic) hits are equal
+   outside equal-t ties; against traverse8 (Woop) hit/miss agreement,
+   counting rays whose ids differ beyond 5e-4 of t as disagreeing, is
+   >= 0.999, and the 99th percentile of relative |dt| < 5e-4;
+11. the megakernel against the wavefront on the card: the cube at
+   leaf_size=4, 96x96, 4 spp, depth 8, equal per-bounce tallies and RMSE
+   < 1e-6; then the cube megakernel on cuda against the cpu (the image
+   gate, tallies within the flip tail);
+12. the heap headline: as 7, on sponza_proc scale 2 at leaf_size=4;
+   every bounce launches traverse1 once, traverse8 and traverse5 never;
+13. instanced against baked: instanced_proc (r = 1000), 512x512, depth
    8, two-level (traverse5) and baked (traverse8): the relative |dt|
    between the two traversals on the frame's primary and first-bounce
    rays, then renders at 1 spp (flip fraction and trimmed RMSE gated,
    untrimmed RMSE reported) and 64 spp (the whole flip-tolerant gate),
    with per-bounce tallies within max(16, 0.5 %);
-9. minecraft_proc two-level (171,997 instances): set-up times, counts
+14. minecraft_proc two-level (171,997 instances): set-up times, counts
    and table bytes; traverse5 (itf mode) against plain on 65,536 and
    1M primary and 1M first-bounce rays with the rules of 3 (ties in
    world units, see compare_hits), the times of kernel and plain at 1M
    rays, and the bound as in 4;
-10. the instanced headline render: minecraft_proc --shared-instances,
-   1024x1024, 64 spp, depth 10, after an untimed 1-spp warm-up with
-   another seed; checks that every bounce launched traverse5 once and
-   traverse8 never, and that the image is finite and not black.
+15. the instanced headline render: minecraft_proc --shared-instances,
+   as 7; checks that every bounce launched traverse5 once and traverse8
+   and traverse1 never.
 
-Both headline frames also report their kernel's time within the frame,
+Every headline frame also reports its kernel's time within the frame,
 from CUDA events around each launch.
 
 The last two lines of standard output are a JSON object with one entry
-per kernel (its launches in its headline, max |dt| against plain, its
-time and plain's at 1M bounce rays, and its bound from this run's
-inputs), then {"ok": true, "device": {...}}.
+per kernel (its launches in its wavefront headline, max |dt| against
+plain, its time and plain's at 1M bounce rays, and its bound from this
+run's inputs), then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -70,6 +89,9 @@ KERNELS = {
     "traverse5": dict(source=f"{PKG}/csrc/traverse5.cu",
                       replaces="sycl_ray_tracer_tpu/ops/traverse_pallas5.py"
                                ":424"),
+    "traverse1": dict(source=f"{PKG}/csrc/traverse1.cu",
+                      replaces="sycl_ray_tracer_tpu/ops/traverse_pallas.py"
+                               ":216"),
 }
 # flip-tolerant image gate (the thresholds of tests/test_render.py)
 RMSE_GATE = 2e-3
@@ -88,10 +110,12 @@ F32_INSTR_PER_S = 67e12 / 2
 # this undercounts and the bound errs low): a child box's slab test is
 # 25 (csrc/bvh8_walk.cuh); a leaf test is 8 slots of 45 (Woop,
 # traverse8.cuh) or 53 (Moller-Trumbore, traverse5.cuh), plus 33 for
-# the instance transform of o and d in itf mode.
+# the instance transform of o and d in itf mode, or K slots of 53
+# (traverse1.cuh, K = the scene's leaf size).
 OPS_BOX = 25
-OPS_LEAF = {"traverse8": 8 * 45, "traverse5": 8 * 53,
-            "traverse5-itf": 8 * 53 + 33}
+OPS_MT_SLOT = 53
+OPS_LEAF = {"traverse8": 8 * 45, "traverse5": 8 * OPS_MT_SLOT,
+            "traverse5-itf": 8 * OPS_MT_SLOT + 33}
 # bytes per ray: o and d in (6 f32), t, tri, u, v out (4 x 4 bytes)
 RAY_BYTES = 40
 
@@ -157,6 +181,9 @@ def kernel_tables(name: str, scene, mt=None) -> list:
     """The tables of kernel `name` on a scene, in the order of its C
     entry point. traverse5 takes `mt` (MT mode on a baked scene) or the
     scene's instanced tables (itf mode)."""
+    if name == "traverse1":
+        return [scene.bvh_children, scene.bvh_leaves, scene.bvh_ni,
+                scene.leaf_size, scene.bvh_leaves.shape[0]]
     if name == "traverse8":
         return [scene.bvh_nodes, scene.bvh_child_ids, scene.bvh_woop,
                 scene.sah_ni]
@@ -170,11 +197,16 @@ def kernel_tables(name: str, scene, mt=None) -> list:
 def kernel_pair(name: str, scene, mt=None):
     """(kernel, plain) callables of `name` on a scene's tables (see
     kernel_tables), as f(o, d, **kw) -> Hit."""
+    from sycl_ray_tracer_torch.ops import traverse1 as t1
     from sycl_ray_tracer_torch.ops import traverse5 as t5
     from sycl_ray_tracer_torch.ops import traverse8 as t8
 
     tabs = kernel_tables(name, scene, mt)
-    if name == "traverse8":
+    if name == "traverse1":
+        extra = {}
+        tabs = tabs[:4]
+        kern, plain = t1.traverse1, t1.traverse1_plain
+    elif name == "traverse8":
         extra = {}
         kern, plain = t8.traverse8, t8.traverse8_plain
     else:
@@ -187,7 +219,7 @@ def kernel_pair(name: str, scene, mt=None):
 
 
 def compare_hits(kern, plain, o, d, label: str,
-                 world_ties: bool = False) -> float:
+                 world_ties: bool = False, chains: bool = True) -> float:
     """Kernel against plain on the same rays; returns max |t| error on
     the lanes whose ids agree.
 
@@ -204,7 +236,8 @@ def compare_hits(kern, plain, o, d, label: str,
     t, 6.8e-4 relative. Those world ties are held to the world-unit
     window, counted, and their largest relative gap printed; every
     other hit must agree in t to rtol 1e-4, and lanes whose ids agree
-    in u, v to atol 1e-4."""
+    in u, v to atol 1e-4. chains=False skips the t_init check (traverse1
+    has no t_init)."""
     k = kern(o, d)
     p = plain(o, d)
     torch.cuda.synchronize()
@@ -234,8 +267,7 @@ def compare_hits(kern, plain, o, d, label: str,
         raise AssertionError(f"{label}: miss lanes differ")
 
     # t_init chaining: nothing is strictly closer than the found t
-    k2 = kern(o, d, t_init=k.t)
-    if not bool((k2.tri == -1).all()):
+    if chains and not bool((kern(o, d, t_init=k.t).tri == -1).all()):
         raise AssertionError(f"{label}: t_init = t still reports hits")
     # inactive lanes: t = 0, tri = -1, u = v = 0; active lanes unchanged
     gen = torch.Generator(device="cpu").manual_seed(11)
@@ -326,8 +358,11 @@ def bound(name: str, scene, kern, o, d, label: str):
     boxes, leaves = counts.tolist()
     n = o.x.shape[0]
     nbytes = n * RAY_BYTES + table_bytes(*tensors)
-    key = name + ("-itf" if name == "traverse5" else "")
-    ops = boxes * OPS_BOX + leaves * OPS_LEAF[key]
+    if name == "traverse1":
+        ops_leaf = scene.leaf_size * OPS_MT_SLOT
+    else:
+        ops_leaf = OPS_LEAF[name + ("-itf" if name == "traverse5" else "")]
+    ops = boxes * OPS_BOX + leaves * ops_leaf
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_INSTR_PER_S
     log(f"[bound] {label}: the kernel's walk slab-tests {boxes / n:.2f} "
         f"child boxes and tests {leaves / n:.2f} leaves per ray (host "
@@ -378,15 +413,21 @@ def camera(host, width: int, height: int, device):
                        device=device)
 
 
-def phase_mt_mode(scene, host, rays: dict) -> float:
-    """traverse5 in MT mode on the baked SAH tree: against its plain
-    version, and against traverse8 (Woop) on the same rays."""
+def sah_mt_rows(host, device) -> torch.Tensor:
+    """The MT rows (v0, e1, e2) of the baked SAH tree's slots: traverse5's
+    MT-mode table for a baked scene."""
     from sycl_ray_tracer_torch.ops import sah
 
     order = sah.build_sah(host.tri_v, 8).order
-    mt = torch.from_numpy(sah.slot_rows(sah.leaf_rows(host.tri_v, order, 8),
-                                        8)).to(scene.bvh_nodes.device)
-    kern, plain = kernel_pair("traverse5", scene, mt=mt)
+    return torch.from_numpy(sah.slot_rows(
+        sah.leaf_rows(host.tri_v, order, 8), 8)).to(device)
+
+
+def phase_mt_mode(scene, host, rays: dict) -> float:
+    """traverse5 in MT mode on the baked SAH tree: against its plain
+    version, and against traverse8 (Woop) on the same rays."""
+    kern, plain = kernel_pair("traverse5", scene,
+                              mt=sah_mt_rows(host, scene.bvh_nodes.device))
     k8, _ = kernel_pair("traverse8", scene)
     err = 0.0
     for label, (o, d) in rays.items():
@@ -408,7 +449,7 @@ def phase_mt_mode(scene, host, rays: dict) -> float:
 
 def phase_cross_check():
     from sycl_ray_tracer_torch.models.wavefront import render_wavefront
-    from sycl_ray_tracer_torch.utils.fixtures import cube_scene_glb
+    from sycl_ray_tracer_torch.utils.fixtures import cube_scene_glb, load_pair
 
     kw = dict(width=96, height=96, spp=4, max_depth=8, seed=0)
     imgs, tallies = [], []
@@ -431,6 +472,9 @@ def phase_instanced_vs_baked():
     where the flip tail's energy is averaged as in tests/test_render.py;
     flips, trimmed RMSE and tallies are gated at both."""
     from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.models import megakernel as mk
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.ops.traverse1 import traverse1
     from sycl_ray_tracer_torch.ops.traverse5 import traverse5
     from sycl_ray_tracer_torch.ops.traverse8 import traverse8
     from sycl_ray_tracer_torch.utils.cli import resolve_scene_bytes
@@ -482,19 +526,128 @@ def phase_instanced_vs_baked():
         check_tallies(out[True][1], out[False][1], label)
 
 
-def phase_headline(scene, cam, smi: str, label: str, kernel, absent):
-    """1024x1024, 64 spp, depth 10 after a 1-spp warm-up; returns the
-    launches of `kernel` in the timed frame. CUDA events around each
-    kernel launch (ops/kernels.py:launch) give the kernel's time within
-    the frame."""
+def phase_mt_heap(heap, sah, host, smi: str):
+    """traverse1 on the Morton heap against its plain version (9) and
+    against traverse8 on the SAH tree of the same host (10); returns
+    (max |dt|, (kernel ms, plain ms) at 1M bounce rays, bound)."""
+    dev = heap.bvh_children.device
+    kern, plain = kernel_pair("traverse1", heap)
+    mt5, _ = kernel_pair("traverse5", sah, mt=sah_mt_rows(host, dev))
+    rays = dict(zip(("primary", "bounce"),
+                    make_rays(heap, camera(host, 256, 256, dev), 256, 256,
+                              65536)))
+    err = 0.0
+    for label, (o, d) in rays.items():
+        err = max(err, compare_hits(kern, plain, o, d,
+                                    f"traverse1 heap K=4 {label}",
+                                    chains=False))
+        heap_vs_sah(heap, sah, mt5, o, d, label)
+    cam = camera(host, 1024, 1024, dev)
+    rays = dict(zip(("primary", "bounce"),
+                    make_rays(heap, cam, 1024, 1024, 1 << 20)))
+    for label, (o, d) in rays.items():
+        err = max(err, compare_hits(kern, plain, o, d,
+                                    f"traverse1 heap K=4 {label} 1M",
+                                    chains=False))
+        heap_vs_sah(heap, sah, mt5, o, d, f"{label} 1M")
+    times = phase_times(kern, plain, rays, smi,
+                        "traverse1 sponza_proc leaf_size 4")
+    b1 = bound("traverse1", heap, kern, *rays["bounce"],
+               "traverse1 sponza_proc leaf_size 4 bounce 1M")
+    return err, times["bounce"], b1
+
+
+def heap_vs_sah(heap, sah, mt5, o, d, label: str) -> None:
+    """traverse1 (Morton slots) against the SAH tree of the same host on
+    the same rays, both in canonical Morton slots (bvh_remap):
+    - against traverse5 in MT mode (mt5), the same Moller-Trumbore
+      arithmetic on the same rows: hit/miss equal, ids equal outside
+      1e-6-relative t ties, t, u, v equal bit for bit where they agree;
+    - against traverse8 (Woop): hit/miss agreement >= 0.999 and p99 of
+      relative |dt| < 5e-4. Where Woop and MT place a ray on either side
+      of a shared edge, the ids differ beyond the t window too; such
+      rays are counted with the hit/miss differences."""
+    from sycl_ray_tracer_torch.models.trace import intersect_scene
+
+    a = intersect_scene(heap, o, d)
+    c = mt5(o, d)
+    tri_c = torch.where(c.tri >= 0, sah.bvh_remap[c.tri.clamp(min=0).long()],
+                        -1).cpu().numpy()
+    b = intersect_scene(sah, o, d)
+    ta, tb, tc = (h.t.cpu().numpy() for h in (a, b, c))
+    tri_a, tri_b = a.tri.cpu().numpy(), b.tri.cpu().numpy()
+
+    hit = tri_a >= 0
+    tie = np.abs(ta - tc) <= 1e-6 * np.abs(tc)
+    mt_ties = int((hit & (tri_a != tri_c)).sum())
+    same = tri_a == tri_c
+    if (hit != (tri_c >= 0)).any() or (hit & ~same & ~tie).any() or not all(
+            np.array_equal(x.cpu().numpy()[same], y.cpu().numpy()[same])
+            for x, y in ((a.t, c.t), (a.u, c.u), (a.v, c.v))):
+        raise AssertionError(f"traverse1 vs traverse5 MT {label}: the heap "
+                             "and the SAH tree disagree")
+
+    hb = tri_b >= 0
+    both = hit & hb
+    rel = np.abs(ta.astype(np.float64) - tb) / np.abs(tb)
+    p99 = float(np.percentile(rel[both], 99))
+    flips = (hit != hb) | (both & (tri_a != tri_b) & (rel > 5e-4))
+    agree = 1.0 - float(flips.mean())
+    log(f"[kernel] traverse1 K=4 vs SAH sponza {label}: vs traverse5 MT "
+        f"equal outside {mt_ties} tie-broken ids; vs traverse8 hit/miss "
+        f"differ on {int((hit != hb).sum())}, ids beyond 5e-4 of t on "
+        f"{int(flips.sum() - (hit != hb).sum())}, agreement {agree:.6f}, "
+        f"p99 relative |dt| {p99:.3g}")
+    if agree < 0.999 or p99 >= 5e-4:
+        raise AssertionError(f"traverse1 vs traverse8 {label}: MT and Woop "
+                             "disagree")
+
+
+def rmse(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2)))
+
+
+def phase_engines():
+    """The megakernel against the wavefront on the card, and the
+    megakernel on cuda against the cpu: the cube at leaf_size=4."""
+    from sycl_ray_tracer_torch.models.megakernel import render_megakernel
     from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.utils.fixtures import cube_scene_glb, load_pair
+
+    kw = dict(width=96, height=96, spp=4, max_depth=8, seed=0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene, _, cam = load_pair(cube_scene_glb(), 96, 96, leaf_size=4,
+                                  device=torch.device(dev))
+        img, rays = render_megakernel(scene, cam, **kw)
+        out[dev] = (img.cpu().numpy(), rays.numpy())
+        if dev == "cuda":
+            img, rays = render_wavefront(scene, cam, **kw)
+            w, wrays = img.cpu().numpy(), rays.numpy()
+    m, mrays = out["cuda"]
+    log(f"[engines] cube leaf_size 4 on cuda: megakernel vs wavefront RMSE "
+        f"{rmse(m, w):.3g}, tallies {mrays.tolist()} vs {wrays.tolist()}")
+    if not (rmse(m, w) < 1e-6 and (mrays == wrays).all()):
+        raise AssertionError("megakernel and wavefront disagree on the card")
+    check_images(m, out["cpu"][0], "cube megakernel cuda vs cpu")
+    check_tallies(mrays, out["cpu"][1], "cube megakernel cuda vs cpu")
+
+
+def phase_headline(render, scene, cam, smi: str, label: str, kernel,
+                   absent, waves: int = 1):
+    """render(...) at 1024x1024, 64 spp, depth 10 after a 1-spp warm-up;
+    checks that `kernel` launched once per bounce of each of the frame's
+    `waves` waves and no kernel of `absent` ran; returns (launches of
+    `kernel`, per-bounce tallies). CUDA events around each kernel launch
+    (ops/kernels.py:launch) give the kernel's time within the frame."""
     from sycl_ray_tracer_torch.ops import kernels
 
     kw = dict(width=1024, height=1024, max_depth=10)
-    render_wavefront(scene, cam, spp=1, seed=1, **kw)
+    render(scene, cam, spp=1, seed=1, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = absent.launches = 0
+    for k in (kernel, *absent):
+        k.launches = 0
     events, launch = [], kernels.launch
 
     def timed_launch(*args):
@@ -509,7 +662,7 @@ def phase_headline(scene, cam, smi: str, label: str, kernel, absent):
     kernels.launch = timed_launch
     try:
         t0 = time.perf_counter()
-        img, rays = render_wavefront(scene, cam, spp=64, seed=0, **kw)
+        img, rays = render(scene, cam, spp=64, seed=0, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
@@ -530,10 +683,11 @@ def phase_headline(scene, cam, smi: str, label: str, kernel, absent):
         f"{total / secs / 1e6:.4f} Mrays/s, tallies {rays.tolist()}, "
         f"{kernel.__name__} launches {launches}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if launches != bounces or absent.launches != 0:
+    others = {k.__name__: k.launches for k in absent}
+    if launches != waves * bounces or any(others.values()):
         raise AssertionError(
             f"{kernel.__name__} launched {launches} times for {bounces} "
-            f"bounces, {absent.__name__} {absent.launches} times")
+            f"bounces of {waves} waves; other kernels {others}")
     img = img.cpu().numpy()
     if not np.isfinite(img).all() or img.max() <= 0.0 or img.mean() < 0.01:
         raise AssertionError(f"{label} headline image is not finite or is "
@@ -541,7 +695,7 @@ def phase_headline(scene, cam, smi: str, label: str, kernel, absent):
     if rays[0] != 1024 * 1024 * 64:
         raise AssertionError("ray tallies inconsistent")
     log(f"[headline] image mean {img.mean():.4f}, max {img.max():.4f}")
-    return launches
+    return launches, rays.numpy()
 
 
 def main() -> int:
@@ -550,9 +704,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
 
+    from sycl_ray_tracer_torch.models import megakernel as mk
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.ops.traverse1 import traverse1
     from sycl_ray_tracer_torch.ops.traverse5 import traverse5
     from sycl_ray_tracer_torch.ops.traverse8 import traverse8
     from sycl_ray_tracer_torch.utils.cli import resolve_scene_bytes
+    from sycl_ray_tracer_torch.utils.fixtures import load_pair
 
     cuda = torch.device("cuda")
     report = {}
@@ -582,11 +740,42 @@ def main() -> int:
     del prim, bounce
 
     phase_cross_check()
-    launches8 = phase_headline(scene, cam, smi, "sponza_proc scale 2",
-                               traverse8, traverse5)
+    launches8, rays8 = phase_headline(render_wavefront, scene, cam, smi,
+                                      "sponza_proc scale 2", traverse8,
+                                      (traverse5, traverse1))
     report["traverse8"] = dict(launches=launches8, max_abs_err=err8,
                                times=times["bounce"], bound=b8)
-    del scene, cam, host, kern, plain
+    del kern, plain
+
+    # ---- the megakernel on the baked main path (traverse8) ----
+    per_wave = max(1, min(64, mk.WAVE_RAYS // (1024 * 1024)))
+    _, mk_rays = phase_headline(
+        mk.render_megakernel, scene, cam, smi, "sponza_proc scale 2 "
+        "megakernel", traverse8, (traverse5, traverse1),
+        waves=-(-64 // per_wave))
+    check_tallies(mk_rays, rays8, "sponza_proc megakernel vs wavefront")
+    if not (mk_rays == rays8).all():
+        raise AssertionError("megakernel and wavefront headline tallies "
+                             "differ")
+
+    # ---- the Morton-heap path (leaf_size 4, traverse1) ----
+    t0 = time.perf_counter()
+    heap, _, hcam = load_pair(resolve_scene_bytes("sponza_proc"), 1024,
+                              1024, leaf_size=4, device=cuda)
+    log(f"[scene] sponza_proc scale 2 leaf_size 4: NI {heap.bvh_ni}, depth "
+        f"{heap.bvh_depth}, {heap.bvh_leaves.shape[0]} leaves; children "
+        f"{table_bytes(heap.bvh_children)} bytes, leaves "
+        f"{table_bytes(heap.bvh_leaves)} bytes, {heap.shade_tbl.shape[0]} "
+        f"shading rows; built in {time.perf_counter() - t0:.2f} s")
+    err1, times1, b1 = phase_mt_heap(heap, scene, host, smi)
+    del scene, cam, host
+    phase_engines()
+    launches1, _ = phase_headline(render_wavefront, heap, hcam, smi,
+                                  "sponza_proc scale 2 leaf_size 4",
+                                  traverse1, (traverse8, traverse5))
+    report["traverse1"] = dict(launches=launches1, max_abs_err=err1,
+                               times=times1, bound=b1)
+    del heap, hcam
     torch.cuda.empty_cache()
 
     # ---- the two-level instanced path (traverse5, itf mode) ----
@@ -628,9 +817,9 @@ def main() -> int:
     b5 = bound("traverse5", scene, kern, *bounce1m,
                "traverse5 itf minecraft_proc bounce 1M")
     del prim1m, bounce1m
-    launches5 = phase_headline(scene, cam, smi,
-                               "minecraft_proc --shared-instances",
-                               traverse5, traverse8)
+    launches5, _ = phase_headline(render_wavefront, scene, cam, smi,
+                                  "minecraft_proc --shared-instances",
+                                  traverse5, (traverse8, traverse1))
     report["traverse5"] = dict(launches=launches5, max_abs_err=err5,
                                times=times["bounce"], bound=b5)
 
@@ -639,7 +828,7 @@ def main() -> int:
         launches=r["launches"], max_abs_err=r["max_abs_err"],
         ms=r["times"][0], plain_ms=r["times"][1], bound_ms=r["bound"][0],
         bound_by=r["bound"][1], library_ms=None)
-        for name, r in report.items()]}))
+        for name, r in ((n, report[n]) for n in KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

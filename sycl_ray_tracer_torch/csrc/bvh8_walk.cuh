@@ -1,20 +1,27 @@
-// Per-ray closest-hit walk of a BVH8, generic over the leaf test.
+// Per-ray closest-hit walk of a BVH8, generic over where the child ids
+// come from and over the leaf test.
 //
-// Shared by the CUDA kernels (traverse8.cu, traverse5.cu, built by nvcc
-// for sm_90a) and the host build (walk_host.cpp, built by g++ in the
-// tests), so the walk the card runs is the code the CPU tests check.
+// Shared by the CUDA kernels (traverse8.cu, traverse5.cu, traverse1.cu,
+// built by nvcc for sm_90a) and the host build (walk_host.cpp, built by
+// g++ in the tests), so the walk the card runs is the code the CPU
+// tests check.
 //
 // Node tables (models/scene.py):
 //   nodes     [NI, 48] f32: child boxes component-major, 8 lanes each of
 //             lo.x, lo.y, lo.z, hi.x, hi.y, hi.z
-//   child_ids [NI, 8] i32: internal child = row, leaf child = NI + leaf
-//             row, empty slot = 0 (the root, never a real child) with a
-//             point-at-infinity box
+// Child ids, from one of two sources (an id of 0 is an empty slot: the
+// root is never a child):
+//   TableChildren: child_ids [NI, 8] i32 (SAH and instanced trees):
+//             internal child = row, leaf child = NI + leaf row, empty
+//             slot = 0 with a point-at-infinity box;
+//   HeapChildren: the implicit Morton heap (ops/wbvh.py), child j of node
+//             n is 8n + 1 + j, computed; leaf children past the leaf
+//             table (the heap's padding) are empty.
 //
-// Semantics (those of the JAX package's traverse_packets8/5):
+// Semantics (those of the JAX package's traverse_packets8/5/1):
 //   - active rays report the closest hit with TNEAR < t < t_init as
-//     (t, leaf_row*8 + j, u, v); with no such hit, tri = -1, t = t_init
-//     and u = v = 0;
+//     (t, leaf_row*K + j, u, v) for K-slot leaves; with no such hit,
+//     tri = -1, t = t_init and u = v = 0;
 //   - inactive rays report t = 0, tri = -1, u = v = 0;
 //   - a child box is entered when tmax >= max(tmin, TNEAR) and
 //     tmin < t_best, with inverse direction 1/d where |d| > 1e-20 and
@@ -69,12 +76,28 @@ struct WalkCounts {
   int64_t leaves;
 };
 
-// `leaf(leaf_row, ray, t_best, hit)` tests the 8 slots of one leaf and,
+struct TableChildren {
+  const int32_t* ids;  // [NI, 8]
+  SRT_HD int32_t operator()(int32_t nd, int j) const {
+    return ids[(int64_t)nd * 8 + j];
+  }
+};
+
+struct HeapChildren {
+  int32_t end;  // NI + rows of the leaf table; 8 * NI + 8 fits int32 up
+                // to depth 9, the deepest tree the stack allows
+  SRT_HD int32_t operator()(int32_t nd, int j) const {
+    const int32_t c = 8 * nd + 1 + j;
+    return c < end ? c : 0;
+  }
+};
+
+// `kids(node, j)` gives the id of child j (0: empty slot);
+// `leaf(leaf_row, ray, t_best, hit)` tests the slots of one leaf and,
 // on a strictly closer hit, lowers t_best and records the hit.
-template <class Leaf>
-SRT_HD HitOut walk(const float* __restrict__ nodes,
-                   const int32_t* __restrict__ child_ids, int32_t ni,
-                   const Ray& r, bool active, float t_init,
+template <class Children, class Leaf>
+SRT_HD HitOut walk(const float* __restrict__ nodes, const Children& kids,
+                   int32_t ni, const Ray& r, bool active, float t_init,
                    const Leaf& leaf, WalkCounts* counts = nullptr) {
   HitOut h;
   h.tri = -1;
@@ -103,13 +126,12 @@ SRT_HD HitOut walk(const float* __restrict__ nodes,
     // pushed cannot hold a closer hit: the same test as at push time
     if (!(stack_t[sp] < tb)) continue;
     const float* row = nodes + (int64_t)nd * 48;
-    const int32_t* ids = child_ids + (int64_t)nd * 8;
 
     int32_t push_id[8];
     float push_t[8];
     int n_push = 0;
     for (int j = 0; j < 8; j++) {
-      const int32_t c = ids[j];
+      const int32_t c = kids(nd, j);
       if (c == 0) continue;  // empty slot
       if (counts != nullptr) counts->boxes++;
       const float t1x = (row[j] - r.ox) * ix;

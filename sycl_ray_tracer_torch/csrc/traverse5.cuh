@@ -27,35 +27,41 @@ namespace srt {
 
 constexpr float kDetEps = 1e-12f;
 
+// One triangle (v0, e1, e2) against the ray: on a hit strictly closer
+// than tb, lowers tb and records (tb, id, u, v).
+SRT_HD void mt_slot(float v0x, float v0y, float v0z, float e1x, float e1y,
+                    float e1z, float e2x, float e2y, float e2z,
+                    const Ray& r, int32_t id, float& tb, HitOut& h) {
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool ok_det = det > kDetEps || det < -kDetEps;
+  const float inv_det = ok_det ? 1.0f / det : 0.0f;
+  const float tx = r.ox - v0x;
+  const float ty = r.oy - v0y;
+  const float tz = r.oz - v0z;
+  const float uu = (tx * px + ty * py + tz * pz) * inv_det;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  if (ok_det && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
+      tt > kTnear && tt < tb) {
+    tb = tt;
+    h.tri = id;
+    h.u = uu;
+    h.v = vv;
+  }
+}
+
 SRT_HD void mt_leaf(const float* __restrict__ mt, int64_t slot_row,
                     int64_t leaf, const Ray& r, float& tb, HitOut& h) {
   const float* m = mt + slot_row * 8 * 9;
   for (int s = 0; s < 8; s++, m += 9) {
-    const float v0x = m[0], v0y = m[1], v0z = m[2];
-    const float e1x = m[3], e1y = m[4], e1z = m[5];
-    const float e2x = m[6], e2y = m[7], e2z = m[8];
-    const float px = r.dy * e2z - r.dz * e2y;
-    const float py = r.dz * e2x - r.dx * e2z;
-    const float pz = r.dx * e2y - r.dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    const bool ok_det = det > kDetEps || det < -kDetEps;
-    const float inv_det = ok_det ? 1.0f / det : 0.0f;
-    const float tx = r.ox - v0x;
-    const float ty = r.oy - v0y;
-    const float tz = r.oz - v0z;
-    const float uu = (tx * px + ty * py + tz * pz) * inv_det;
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-    const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-    if (ok_det && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-        tt > kTnear && tt < tb) {
-      tb = tt;
-      h.tri = (int32_t)(leaf * 8 + s);
-      h.u = uu;
-      h.v = vv;
-    }
+    mt_slot(m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8], r,
+            (int32_t)(leaf * 8 + s), tb, h);
   }
 }
 
@@ -90,7 +96,7 @@ SRT_HD HitOut trace5(const float* __restrict__ nodes,
                      bool active, float t_init,
                      WalkCounts* counts = nullptr) {
   const Ray r{ox, oy, oz, dx, dy, dz};
-  return walk(nodes, child_ids, ni, r, active, t_init,
+  return walk(nodes, TableChildren{child_ids}, ni, r, active, t_init,
               MtLeaf{mt, leaf_slot, leaf_xf}, counts);
 }
 

@@ -52,8 +52,8 @@ SRT_HD HitOut trace8(const float* __restrict__ nodes,
                      bool active, float t_init,
                      WalkCounts* counts = nullptr) {
   const Ray r{ox, oy, oz, dx, dy, dz};
-  return walk(nodes, child_ids, ni, r, active, t_init, WoopLeaf{woop},
-              counts);
+  return walk(nodes, TableChildren{child_ids}, ni, r, active, t_init,
+              WoopLeaf{woop}, counts);
 }
 
 }  // namespace srt

@@ -6,7 +6,8 @@ build_device_scene, or from an InstancedHostScene
 and moved to `device` (the card unless the caller asks for the CPU)
 once.
 
-Baked scenes, intersected by ops/traverse8.py (csrc/traverse8.cuh):
+Baked scenes at leaf_size 8, intersected by ops/traverse8.py
+(csrc/traverse8.cuh):
   bvh_nodes      [NI, 48] f32  SAH BVH8 child boxes, component-major
                                (8 lanes each of lo.x lo.y lo.z hi.x
                                hi.y hi.z)
@@ -17,6 +18,14 @@ Baked scenes, intersected by ops/traverse8.py (csrc/traverse8.cuh):
                                slot: Woop M row-major (9), then tr (3);
                                dead and padding slots can never hit
   bvh_remap      [L*8]    i64  SAH slot -> canonical Morton slot
+Baked scenes at any other leaf_size K (has_heap), intersected by
+ops/traverse1.py (csrc/traverse1.cuh) on the implicit Morton heap of
+ops/wbvh.py, whose hit ids are canonical Morton slots (no remap):
+  bvh_children   [NI, 48] f32  the heap's child boxes (as bvh_nodes)
+  bvh_leaves     [ceil(N/K), 9K] f32  the real leaves, component-major
+                               (v0, e1, e2; component c of slot j at
+                               c*K + j)
+  bvh_ni = NI, bvh_depth, leaf_size = K
 Two-level instanced scenes (has_instances), intersected by
 ops/traverse5.py in itf mode (csrc/traverse5.cuh); bvh_woop is None:
   bvh_nodes      [NI, 48] f32  one global tree: a TLAS over the
@@ -36,7 +45,11 @@ ops/traverse5.py in itf mode (csrc/traverse5.cuh); bvh_woop is None:
                                world); inst_s8 = S8
 Shading (models/trace.py, models/materials.py), in Morton-slot order
 (instanced: in shared-row order, normals in local space):
-  shade_tbl      [LK, 16] f32  cols 0-8 unit vertex normals, 9-14 uv,
+  shade_tbl      [LK, 16] f32  one row per slot of the 8^depth-leaf
+                               Morton heap of leaf_size K (LK =
+                               8^depth * K; the same row for a triangle
+                               at every K): cols 0-8 unit vertex
+                               normals, 9-14 uv,
                                15 material id
   mat_*          [M] / [M, 3]  material tables (type, albedo, texture
                                id, roughness, ior, emissive)
@@ -54,17 +67,17 @@ import torch
 
 from sycl_ray_tracer_torch.ops import kernels, wbvh, woop
 from sycl_ray_tracer_torch.ops import sah as _sah
-from sycl_ray_tracer_torch.utils.gltf import HostScene
+from sycl_ray_tracer_torch.utils.gltf import HostScene, load_glb
 
 LEAF_SIZE = 8
 
 
 @dataclasses.dataclass
 class DeviceScene:
-    bvh_nodes: torch.Tensor
-    bvh_child_ids: torch.Tensor
+    bvh_nodes: torch.Tensor | None
+    bvh_child_ids: torch.Tensor | None
     bvh_woop: torch.Tensor | None
-    bvh_remap: torch.Tensor
+    bvh_remap: torch.Tensor | None
     shade_tbl: torch.Tensor
     mat_type: torch.Tensor
     mat_albedo: torch.Tensor
@@ -81,6 +94,11 @@ class DeviceScene:
     tex_res: int
     has_textures: bool
     num_triangles: int
+    leaf_size: int = LEAF_SIZE
+    # Morton-heap scenes only (leaf_size != 8)
+    bvh_children: torch.Tensor | None = None
+    bvh_leaves: torch.Tensor | None = None
+    bvh_ni: int = 0
     # two-level instanced scenes only (models/instanced.py)
     bvh_mt: torch.Tensor | None = None
     inst_leaf_slot: torch.Tensor | None = None
@@ -91,6 +109,10 @@ class DeviceScene:
     @property
     def has_instances(self) -> bool:
         return self.inst_xf is not None
+
+    @property
+    def has_heap(self) -> bool:
+        return self.bvh_leaves is not None
 
 
 def _inverse_order(order: np.ndarray, n: int) -> np.ndarray:
@@ -119,24 +141,50 @@ def pack_texels(textures: np.ndarray) -> np.ndarray:
             | (tex[..., 3] << 24)).reshape(-1).view(np.int32)
 
 
-def build_device_scene(host: HostScene, device="cuda") -> DeviceScene:
-    """SAH BVH8 build (native, host), Woop tables, shading tables in the
-    canonical Morton order, all moved to `device` once. Raises on a
-    machine without CUDA unless given device="cpu"."""
+def build_device_scene(host: HostScene, leaf_size: int = LEAF_SIZE,
+                       device="cuda") -> DeviceScene:
+    """The traversal tables of `leaf_size` (8: SAH BVH8 built natively on
+    the host, with Woop leaves; any other K >= 1: the Morton heap of
+    K-slot leaves), and the shading tables in the canonical Morton
+    order, all moved to `device` once. Raises on a machine without CUDA
+    unless given device="cpu"."""
     device = kernels.resolve_device(device)
     n = host.num_triangles
     if n == 0:
         raise ValueError("scene has no triangles")
-    k = LEAF_SIZE
-    sahb = _sah.build_sah(host.tri_v, k)
-    check_stack(sahb.depth)
-    rows = _sah.leaf_rows(host.tri_v, sahb.order, k)
-    M, tr, _ = woop.woop_from_leaf_rows(rows, k)
-    woop_tbl = np.concatenate([M.reshape(-1, 9), tr.reshape(-1, 3)], axis=1)
+    k = int(leaf_size)
+    if k < 1:
+        raise ValueError(f"leaf_size must be at least 1, not {k}")
 
-    order = wbvh.build_np(host.tri_v, k)
-    remap = np.where(sahb.order >= 0,
-                     _inverse_order(order, n)[np.maximum(sahb.order, 0)], -1)
+    def dev(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=device, dtype=dtype)
+
+    if k == LEAF_SIZE:
+        sahb = _sah.build_sah(host.tri_v, k)
+        check_stack(sahb.depth)
+        rows = _sah.leaf_rows(host.tri_v, sahb.order, k)
+        M, tr, _ = woop.woop_from_leaf_rows(rows, k)
+        order = wbvh.morton_order(host.tri_v, k)
+        remap = np.where(sahb.order >= 0,
+                         _inverse_order(order, n)[np.maximum(sahb.order, 0)],
+                         -1)
+        tree = dict(
+            bvh_nodes=dev(sahb.children),
+            bvh_child_ids=dev(sahb.child_ids),
+            bvh_woop=dev(np.concatenate([M.reshape(-1, 9),
+                                         tr.reshape(-1, 3)], axis=1)),
+            bvh_remap=dev(remap, torch.int64),
+            sah_ni=sahb.num_internal, bvh_depth=sahb.depth)
+    else:
+        heap = wbvh.build_np(host.tri_v, k)
+        check_stack(heap.depth)
+        order = heap.order
+        tree = dict(
+            bvh_nodes=None, bvh_child_ids=None, bvh_woop=None,
+            bvh_remap=None, sah_ni=0, bvh_depth=heap.depth,
+            bvh_children=dev(heap.children), bvh_leaves=dev(heap.leaves),
+            bvh_ni=heap.num_internal)
 
     safe = np.maximum(order, 0)
     validm = order >= 0
@@ -156,16 +204,8 @@ def build_device_scene(host: HostScene, device="cuda") -> DeviceScene:
 
     m = host.materials
     verts = host.tri_v.reshape(-1, 3)
-
-    def dev(a, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            device=device, dtype=dtype)
-
     return DeviceScene(
-        bvh_nodes=dev(sahb.children),
-        bvh_child_ids=dev(sahb.child_ids),
-        bvh_woop=dev(woop_tbl),
-        bvh_remap=dev(remap, torch.int64),
+        **tree,
         shade_tbl=dev(shade),
         mat_type=dev(m.mtype, torch.int64),
         mat_albedo=dev(m.albedo, torch.float32),
@@ -177,9 +217,15 @@ def build_device_scene(host: HostScene, device="cuda") -> DeviceScene:
         sky_color=dev(host.sky_color, torch.float32),
         scene_lo=dev(verts.min(0), torch.float32),
         scene_hi=dev(verts.max(0), torch.float32),
-        sah_ni=sahb.num_internal,
-        bvh_depth=sahb.depth,
         tex_res=int(host.textures.shape[1]),
         has_textures=bool((np.asarray(m.tex_id) >= 0).any()),
         num_triangles=n,
+        leaf_size=k,
     )
+
+
+def load_scene(path: str, leaf_size: int = LEAF_SIZE,
+               device="cuda") -> tuple:
+    """.glb path -> (DeviceScene, HostScene)."""
+    host = load_glb(path)
+    return build_device_scene(host, leaf_size, device=device), host

@@ -1,8 +1,9 @@
-"""Per-vertex pieces of the path: intersection, shading inputs and
-Russian roulette.
+"""Per-vertex pieces of the path: intersection, shading inputs, Russian
+roulette, and the masked path-vertex step of the megakernel.
 
 Parity target: trace_ray.hpp:11-82 and its termination algebra, which
-models/wavefront.py applies:
+models/wavefront.py applies to its compacted queue and trace_step to
+every lane of a megakernel wave:
 
 - miss       -> contribute attenuation * (sky_color + radiance)
 - hit        -> radiance += emitted(); scatter
@@ -13,14 +14,17 @@ models/wavefront.py applies:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from sycl_ray_tracer_torch.models import materials as mats
 from sycl_ray_tracer_torch.ops import rng as _rng
 from sycl_ray_tracer_torch.ops.intersect import Hit
+from sycl_ray_tracer_torch.ops.traverse1 import traverse1
 from sycl_ray_tracer_torch.ops.traverse5 import traverse5
 from sycl_ray_tracer_torch.ops.traverse8 import traverse8
-from sycl_ray_tracer_torch.ops.vec import V3, normalize
+from sycl_ray_tracer_torch.ops.vec import V3, normalize, where
 
 # Russian roulette starts at this bounce (rr=True paths only) and
 # clamps survival probability to at least this floor.
@@ -28,20 +32,36 @@ RR_START = 3
 RR_FLOOR = 0.05
 
 
-def intersect_scene(scene, o: V3, d: V3) -> Hit:
-    """Closest hit, with hit ids mapped through bvh_remap to the slots
-    that every shading table uses. Baked scenes go through the SAH BVH8
-    with Woop leaves (ops/traverse8.py; SAH slot -> canonical Morton
-    slot); two-level instanced scenes through the global tree with
-    instance-transformed MT leaves (ops/traverse5.py, itf mode; global
-    slot -> inst * S8 + shared row)."""
+class PathState(NamedTuple):
+    o: V3                # ray origin
+    d: V3                # ray direction (unnormalized, reference convention)
+    att: V3              # accumulated attenuation
+    rad: V3              # accumulated radiance
+    result: V3           # final color once done
+    done: torch.Tensor   # bool
+
+
+def intersect_scene(scene, o: V3, d: V3,
+                    active: torch.Tensor | None = None) -> Hit:
+    """Closest hit of the active rays (all when active is None), with
+    hit ids in the slots that every shading table uses. Heap scenes
+    (leaf_size != 8) go through the Morton heap with K-slot MT leaves
+    (ops/traverse1.py), whose ids are already Morton slots. Baked K=8
+    scenes go through the SAH BVH8 with Woop leaves (ops/traverse8.py)
+    and two-level instanced scenes through the global tree with
+    instance-transformed MT leaves (ops/traverse5.py, itf mode); their
+    ids map through bvh_remap (SAH slot -> canonical Morton slot;
+    global slot -> inst * S8 + shared row)."""
+    if scene.has_heap:
+        return traverse1(scene.bvh_children, scene.bvh_leaves, scene.bvh_ni,
+                         scene.leaf_size, o, d, active=active)
     if scene.has_instances:
         hit = traverse5(scene.bvh_nodes, scene.bvh_child_ids, scene.bvh_mt,
-                        scene.sah_ni, o, d, leaf_slot=scene.inst_leaf_slot,
-                        leaf_xf=scene.inst_xf)
+                        scene.sah_ni, o, d, active=active,
+                        leaf_slot=scene.inst_leaf_slot, leaf_xf=scene.inst_xf)
     else:
         hit = traverse8(scene.bvh_nodes, scene.bvh_child_ids,
-                        scene.bvh_woop, scene.sah_ni, o, d)
+                        scene.bvh_woop, scene.sah_ni, o, d, active=active)
     tri = torch.where(hit.tri >= 0,
                       scene.bvh_remap[hit.tri.clamp(min=0).to(torch.int64)],
                       -1)
@@ -104,3 +124,56 @@ def shade_lanes(scene, hit: Hit):
         emissive=V3(emi[:, 0], emi[:, 1], emi[:, 2]),
     )
     return normal, uv_u, uv_v, mat
+
+
+def trace_step(scene, state: PathState, key: torch.Tensor,
+               bounce_counter: int, rr: bool = False) -> PathState:
+    """Advance every lane that is not done by one path vertex; done
+    lanes keep their state. Bounce i uses RNG counter i + 2 (0 and 1
+    are the camera jitter). The expressions are those of the JAX
+    package's trace_step (trace.py:466-519), in the same order, and per
+    lane those of models/wavefront.py:_bounce, so that both engines
+    compute the same paths."""
+    o, d, att, rad = state.o, state.d, state.att, state.rad
+    live = ~state.done
+
+    hit = intersect_scene(scene, o, d, active=live)
+    miss = hit.tri < 0
+
+    sky = scene.sky_color
+    res_miss = att * (V3(sky[0], sky[1], sky[2]) + rad)  # trace_ray.hpp:25-27
+
+    # shading data for hit lanes (garbage on miss lanes, masked)
+    normal, uv_u, uv_v, mat = shade_lanes(scene, hit)
+    rad_hit = rad + mat.emissive  # trace_ray.hpp:64
+
+    d_unit = normalize(d, eps=1e-20)
+    cont, new_dir, s_att = mats.scatter(scene, mat, d_unit, normal,
+                                        uv_u, uv_v, key, bounce_counter)
+
+    res_absorb = att * rad_hit  # trace_ray.hpp:77-79
+
+    hit_m = live & ~miss
+    scat_m = hit_m & cont
+    term_miss = live & miss
+    term_abs = hit_m & ~cont
+
+    new_att_s = att * s_att
+    term_rr = torch.zeros_like(term_abs)
+    if rr and bounce_counter - 2 >= RR_START:
+        survive, att_rr = rr_survive(new_att_s, key, bounce_counter)
+        term_rr = scat_m & ~survive
+        new_att_s = where(scat_m & survive, att_rr, new_att_s)
+        scat_m = scat_m & ~term_rr
+
+    new_o = where(scat_m, o + d * hit.t, o)
+    new_d = where(scat_m, new_dir, d)
+    new_att = where(scat_m, new_att_s, att)
+    new_rad = where(scat_m, rad_hit, rad)
+
+    # an RR kill contributes like an absorb: att * radiance-so-far
+    result = where(term_miss, res_miss,
+                   where(term_abs | term_rr, res_absorb, state.result))
+    done = state.done | term_miss | term_abs | term_rr
+    return PathState(o=new_o, d=new_d, att=new_att, rad=new_rad,
+                     result=result, done=done)

@@ -30,7 +30,7 @@ STACK = 64
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-CUDA_SOURCES = ("traverse8.cu", "traverse5.cu")
+CUDA_SOURCES = ("traverse8.cu", "traverse5.cu", "traverse1.cu")
 HOST_SOURCE = "walk_host.cpp"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math (dead slots need IEEE inf/NaN). FMA contraction is
@@ -47,7 +47,8 @@ _I64 = ctypes.c_int64
 # pointers (ox oy oz dx dy dz active t_init t tri u v), n_rays, and the
 # stream (card) or the walk counts (host)
 _TABLES = {"traverse8": [_P, _P, _P, _I32],
-           "traverse5": [_P, _P, _P, _P, _P, _I32]}
+           "traverse5": [_P, _P, _P, _P, _P, _I32],
+           "traverse1": [_P, _P, _I32, _I32, _I32]}
 
 _lib = None
 _host_lib = None

@@ -101,30 +101,39 @@ def traverse5_plain(nodes: torch.Tensor, child_ids: torch.Tensor,
                        for a in range(3)],
                       [im[3 * a] * rd[0] + im[3 * a + 1] * rd[1]
                        + im[3 * a + 2] * rd[2] for a in range(3)])
-        ox, oy, oz = (c[:, None] for c in ro)
-        dx, dy, dz = (c[:, None] for c in rd)
-        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows.unbind(2)
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        ok_det = det.abs() > _DET_EPS
-        inv_det = torch.where(ok_det, 1.0 / det, torch.zeros_like(det))
-        tx = ox - v0x
-        ty = oy - v0y
-        tz = oz - v0z
-        uu = (tx * px + ty * py + tz * pz) * inv_det
-        qx = ty * e1z - tz * e1y
-        qy = tz * e1x - tx * e1z
-        qz = tx * e1y - ty * e1x
-        vv = (dx * qx + dy * qy + dz * qz) * inv_det
-        tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-        hit = (ok_det & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-               & (tt > TNEAR) & (tt < tbq))
-        return tt, uu, vv, hit
+        return mt_slots(ro, rd, rows.unbind(2), tbq)
 
     return walk_plain(nodes, child_ids, ni, o, d, active, t_init,
                       leaf_test)
+
+
+def mt_slots(ro, rd, comps, tbq):
+    """Moller-Trumbore over the slots of Q leaves, summed in the order
+    of csrc/traverse5.cuh:mt_slot: ray origins and directions ro, rd
+    (3 tensors [Q] each), the 9 components v0.xyz, e1.xyz, e2.xyz of
+    each slot ([Q, S] each), t_best [Q, 1]. Returns (t, u, v, hit), each
+    [Q, S]."""
+    ox, oy, oz = (c[:, None] for c in ro)
+    dx, dy, dz = (c[:, None] for c in rd)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = comps
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok_det = det.abs() > _DET_EPS
+    inv_det = torch.where(ok_det, 1.0 / det, torch.zeros_like(det))
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    uu = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    vv = (dx * qx + dy * qy + dz * qz) * inv_det
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    hit = (ok_det & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+           & (tt > TNEAR) & (tt < tbq))
+    return tt, uu, vv, hit
 
 
 class Tables5(NamedTuple):

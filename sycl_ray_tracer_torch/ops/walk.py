@@ -1,6 +1,7 @@
 """The level-synchronous BVH8 walk in plain torch, generic over the leaf
-test: the body of traverse8_plain (Woop leaves) and traverse5_plain
-(Moller-Trumbore leaves, optionally instance-transformed).
+test: the body of traverse8_plain (Woop leaves), traverse5_plain
+(Moller-Trumbore leaves, optionally instance-transformed) and
+traverse1_plain (K-slot Moller-Trumbore leaves of the Morton heap).
 
 It computes the function of the kernels' per-ray walk
 (csrc/bvh8_walk.cuh) over all rays at once: each level slab-tests all
@@ -20,10 +21,11 @@ from sycl_ray_tracer_torch.ops.vec import V3
 
 
 def walk_plain(nodes: torch.Tensor, child_ids: torch.Tensor, ni: int,
-               o: V3, d: V3, active, t_init, leaf_test) -> Hit:
-    """leaf_test(ray_idx [Q] i64, leaf [Q] i64, t_best [Q, 1]) ->
-    (t, u, v, hit), each [Q, 8]: the 8 slots of leaf `leaf` against
-    ray `ray_idx`."""
+               o: V3, d: V3, active, t_init, leaf_test, k: int = 8) -> Hit:
+    """child_ids [NI, 8] (0: empty slot); leaf_test(ray_idx [Q] i64,
+    leaf [Q] i64, t_best [Q, 1]) -> (t, u, v, hit), each [Q, k]: the k
+    slots of leaf `leaf` against ray `ray_idx`, reported as
+    leaf * k + slot."""
     dev = o.x.device
     r = o.x.shape[0]
     act = (torch.ones((r,), dtype=torch.bool, device=dev) if active is None
@@ -74,7 +76,7 @@ def walk_plain(nodes: torch.Tensor, child_ids: torch.Tensor, ni: int,
             qs = pick[rw]
             sqs = sq[qs]
             tb[rw] = tq[qs]
-            tri[rw] = (leaf[qs] * 8 + sqs).to(torch.int32)
+            tri[rw] = (leaf[qs] * k + sqs).to(torch.int32)
             u[rw] = uu[qs, sqs]
             v[rw] = vv[qs, sqs]
 

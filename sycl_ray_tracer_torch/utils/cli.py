@@ -8,8 +8,9 @@ Parity target: main.cpp:8-77 plus the three benchmark-scraped lines
     Rays/sec: {:.2f}M
 
 Flags match main.cpp:11-28 (-d/--max-depth default 10, -s/--sample-count
-default 32, positional scene path defaulting to ./assets/sponza.glb; a
-missing file is an error). --width/--height lift the reference's
+default 32, -m megakernel, -w wavefront, the default; with both, the
+megakernel wins as in main.cpp:58; positional scene path defaulting to
+./assets/sponza.glb; a missing file is an error). --width/--height lift the reference's
 hardcoded 1920x1080 (main.cpp:36). Additions: --seed, --output, --rr,
 --warmup, --device, --shared-instances, and procedural scene names
 (sponza_proc / minecraft_proc / instanced_proc / triangle / cube /
@@ -21,9 +22,8 @@ copy of each unique primitive, one transform per instance
 (utils/instanced.py, models/instanced.py), intersected by the traverse5
 kernel. Without it every instance is baked to world space.
 
-Only the wavefront engine is ported; -m raises. The default device is
-cuda, and a machine without CUDA is an error: the CPU runs only when
-asked for with --device cpu.
+The default device is cuda, and a machine without CUDA is an error,
+with either engine: the CPU runs only when asked for with --device cpu.
 """
 
 from __future__ import annotations
@@ -47,7 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-d", "--max-depth", type=int, default=10)
     p.add_argument("-s", "--sample-count", type=int, default=32)
     p.add_argument("-m", "--megakernel", action="store_true",
-                   help="use megakernel renderer (not yet ported)")
+                   help="use megakernel renderer")
+    p.add_argument("-w", "--wavefront", action="store_true",
+                   help="use wavefront renderer (default)")
     p.add_argument("--width", type=int, default=1920)
     p.add_argument("--height", type=int, default=1080)
     p.add_argument("--seed", type=int, default=0)
@@ -115,8 +117,6 @@ def load_scene(scene_bytes: bytes, device, shared_instances: bool):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.megakernel:
-        raise NotImplementedError("megakernel not yet ported")
 
     import torch
 
@@ -126,8 +126,11 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
 
     from sycl_ray_tracer_torch.models.camera import make_camera
-    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.models.renderer import get_renderer
     from sycl_ray_tracer_torch.utils.image_io import write_png
+
+    # both flags set -> megakernel (main.cpp:58 checks -m first)
+    render = get_renderer("megakernel" if args.megakernel else "wavefront")
 
     print(f"Loading scene: {args.scene_path}")
     scene, host = load_scene(resolve_scene_bytes(args.scene_path), device,
@@ -137,10 +140,9 @@ def main(argv=None) -> int:
                       device=device)
 
     def run(seed):
-        return render_wavefront(scene, cam, width=args.width,
-                                height=args.height, spp=args.sample_count,
-                                max_depth=args.max_depth, seed=seed,
-                                rr=args.rr)
+        return render(scene, cam, width=args.width, height=args.height,
+                      spp=args.sample_count, max_depth=args.max_depth,
+                      seed=seed, rr=args.rr)
 
     def sync():
         if device.type == "cuda":

@@ -1,6 +1,7 @@
 """Tests of the port that need the card: the CUDA kernels against their
-plain versions, the wrappers' input checks, and small renders (baked and
-two-level instanced) on cuda against the same renders on the cpu. They
+plain versions, the wrappers' input checks, and small renders (baked,
+Morton heap through the megakernel, and two-level instanced) on cuda
+against the same renders on the cpu. They
 skip without a CUDA device.
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -13,8 +14,10 @@ import torch
 
 from sycl_ray_tracer_torch.models.instanced import (
     build_instanced_device_scene)
+from sycl_ray_tracer_torch.models.megakernel import render_megakernel
 from sycl_ray_tracer_torch.models.wavefront import render_wavefront
 from sycl_ray_tracer_torch.ops import sah as tsah
+from sycl_ray_tracer_torch.ops import traverse1 as t1
 from sycl_ray_tracer_torch.ops import traverse5 as t5
 from sycl_ray_tracer_torch.ops import traverse8 as t8
 from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
@@ -191,6 +194,59 @@ def test_instanced_render_cuda_matches_cpu(cuda):
         img, rays = render_wavefront(scene, cam, **kw)
         launched = t5.traverse5.launches - before
         out.append((img.cpu().numpy(), rays.numpy(), launched))
+    (a, ra, la), (b, rb, lb) = out
+    assert la == int((ra > 0).sum()) and lb == 0
+    assert (np.abs(ra - rb) <= np.maximum(16, 0.005 * rb)).all()
+    d = np.abs(a - b).max(axis=-1)
+    assert (d > 0.05).mean() < 5e-3
+    assert float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2))) < 4e-3
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_traverse1_kernel_matches_plain(cuda, k):
+    """traverse1 on the Morton heap of sponza scale 1 at leaf size k,
+    against traverse1_plain with the rules of test_kernel_matches_plain
+    (no t_init: v1 has none)."""
+    host = load_glb(tproc.sponza_like_glb(scale=1))
+    scene = build_device_scene(host, leaf_size=k, device=cuda)
+    o, d = _rays(host, 8192, 14, cuda)
+    args = (scene.bvh_children, scene.bvh_leaves, scene.bvh_ni, k, o, d)
+    before = t1.traverse1.launches
+    kh = t1.traverse1(*args)
+    assert t1.traverse1.launches == before + 1
+    p = t1.traverse1_plain(*args)
+    hit = p.tri >= 0
+    assert 0.2 < float(hit.float().mean()) < 1.0
+    assert bool(((kh.tri >= 0) == hit).all())
+    tie = (kh.t - p.t).abs() <= 1e-6 * p.t.abs()
+    assert not bool((hit & (kh.tri != p.tri) & ~tie).any())
+    assert torch.allclose(kh.t, p.t, rtol=1e-4)
+    same = hit & (kh.tri == p.tri)
+    assert torch.equal(kh.u[same], p.u[same])
+    assert torch.equal(kh.v[same], p.v[same])
+    active = torch.rand(8192, device=cuda) < 0.5
+    k3 = t1.traverse1(*args, active=active)
+    assert bool((k3.t[~active] == 0).all())
+    assert bool((k3.tri[~active] == -1).all())
+    assert bool((k3.tri[active] == kh.tri[active]).all())
+    with pytest.raises(ValueError):
+        t1.traverse1(scene.bvh_children, scene.bvh_leaves[:, :-1], scene.bvh_ni,
+                     k, o, d)
+
+
+def test_megakernel_heap_cuda_matches_cpu(cuda):
+    """The cube at leaf size 4 through the megakernel (traverse1 every
+    bounce) on cuda and on the cpu: the image gate, and tallies within
+    the flip tail."""
+    kw = dict(width=96, height=96, spp=4, max_depth=8, seed=0)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, _, cam = tfix.load_pair(tfix.cube_scene_glb(), 96, 96,
+                                       device=dev)
+        before = t1.traverse1.launches
+        img, rays = render_megakernel(scene, cam, **kw)
+        out.append((img.cpu().numpy(), rays.numpy(),
+                    t1.traverse1.launches - before))
     (a, ra, la), (b, rb, lb) = out
     assert la == int((ra > 0).sum()) and lb == 0
     assert (np.abs(ra - rb) <= np.maximum(16, 0.005 * rb)).all()

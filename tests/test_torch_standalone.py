@@ -31,12 +31,15 @@ _MAIN_PATH_MODULES = [
     "sycl_ray_tracer_torch.ops.walk",
     "sycl_ray_tracer_torch.ops.traverse8",
     "sycl_ray_tracer_torch.ops.traverse5",
+    "sycl_ray_tracer_torch.ops.traverse1",
     "sycl_ray_tracer_torch.models.camera",
     "sycl_ray_tracer_torch.models.scene",
     "sycl_ray_tracer_torch.models.instanced",
     "sycl_ray_tracer_torch.models.trace",
     "sycl_ray_tracer_torch.models.materials",
     "sycl_ray_tracer_torch.models.wavefront",
+    "sycl_ray_tracer_torch.models.megakernel",
+    "sycl_ray_tracer_torch.models.renderer",
 ]
 
 # refuses every import of PIL, as on a machine without Pillow
@@ -116,6 +119,14 @@ icam = make_camera(16, 12, ih.camera_position, ih.camera_direction,
 img, rays = render_wavefront(iscene, icam, width=16, height=12, spp=1,
                              max_depth=2)
 assert rays[0] == 16 * 12 and np.isfinite(img.numpy()).all()
+# the Morton-heap scene through the megakernel
+from sycl_ray_tracer_torch.utils.fixtures import cube_scene_glb, load_pair
+from sycl_ray_tracer_torch.models.megakernel import render_megakernel
+hscene, _, hcam = load_pair(cube_scene_glb(), 16, 12, device="cpu")
+img, rays = render_megakernel(hscene, hcam, width=16, height=12, spp=1,
+                              max_depth=2)
+assert hscene.has_heap and rays[0] == 16 * 12
+assert np.isfinite(img.numpy()).all()
 assert "PIL" not in sys.modules
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
 print("ok")
@@ -151,11 +162,13 @@ def test_cli_refuses_missing_scene(tmp_path):
 
 
 def test_cli_refuses_missing_cuda_and_megakernel():
+    """Without CUDA, both engines refuse the default device instead of
+    falling back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
-    p = _run(args=["-m", "sycl_ray_tracer_torch", "triangle", "-s", "1",
-                   "-d", "1", "--width", "8", "--height", "8"])
-    assert p.returncode != 0 and "CUDA is not available" in p.stderr
-    p = _run(args=["-m", "sycl_ray_tracer_torch", "triangle", "-m",
-                   "--device", "cpu"])
-    assert p.returncode != 0 and "megakernel not yet ported" in p.stderr
+    for engine in ("-w", "-m"):
+        p = _run(args=["-m", "sycl_ray_tracer_torch", "triangle", engine,
+                       "-s", "1", "-d", "1", "--width", "8", "--height",
+                       "8"])
+        assert p.returncode != 0 and "CUDA is not available" in p.stderr
+        assert "Time measured" not in p.stdout
