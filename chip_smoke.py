@@ -6,7 +6,8 @@ kernel on them against its plain PyTorch version, and report.
 Phases (any failure raises and exits non-zero):
 1. device: CUDA is required; prints the card's name and power limit;
 2. build: compiles the CUDA kernels from csrc/ with nvcc, one process
-   per source (timed), and prints ptxas' registers and spills;
+   per source (timed), and prints ptxas' registers, stack frames,
+   shared memory and spills, and the resident warps per SM they allow;
 3. traverse8 against plain on the procedural Sponza (scale 2, 248K
    triangles): 65,536 primary and 65,536 first-bounce rays; tri ids
    equal outside ties (t within 1e-6 relative), t rtol 1e-4 on every
@@ -16,6 +17,12 @@ Phases (any failure raises and exits non-zero):
    primary and 1M bounce rays, and the bound of the bounce launch (its
    work counted by the host build of the kernel's walk, which must
    return the kernel's hits bit for bit);
+4b. the masked launch: the 1M bounce rays tiled to 8,388,608 lanes (a
+   megakernel wave) and traverse8 timed with 100 %, 44 % and 18 % of
+   the lanes active (seeded random masks: the megakernel's first
+   bounce, its average, its bounce 10), in ms per launch and per
+   million live lanes; on a 1M slice of each mask, kernel against
+   plain with the rules of 3;
 5. traverse5 in MT mode on the same scene (rows from sah.leaf_rows) and
    the same 65,536 + 65,536 rays: against its plain version with the
    rules of 3, and against traverse8 (Woop vs MT: hit/miss agreement
@@ -28,12 +35,17 @@ Phases (any failure raises and exits non-zero):
    traverse1 never) and that the image is finite and not black;
 8. the megakernel headline: render_megakernel on the same scene, as 7;
    traverse8 launches once per bounce of each wave, and the per-bounce
-   tallies equal those of 7 (same scene and seed);
+   tallies equal those of 7 (same scene and seed); then the frame again,
+   untimed, with the host build of the walk run on each launch's lanes:
+   its hits must equal the kernel's, and its work on the live lanes
+   plus the bytes of all lanes give the bound of each of the 80
+   launches;
 9. traverse1 against plain on sponza_proc scale 2 built with
    leaf_size=4 (the Morton heap): 65,536 primary and 65,536
    first-bounce rays, then 1M of each, with the rules of 3 (v1 has no
    t_init); the times of kernel and plain at 1M rays, and the bound of
-   the 1M bounce launch as in 4;
+   the 1M bounce launch as in 4; then the masked launch of 4b for
+   traverse1;
 10. traverse1 against the SAH tree of the same host on the same rays,
    after its bvh_remap: Morton slot ids do not depend on the leaf size.
    Against traverse5 in MT mode (the same arithmetic) hits are equal
@@ -74,6 +86,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -118,6 +131,14 @@ OPS_LEAF = {"traverse8": 8 * 45, "traverse5": 8 * OPS_MT_SLOT,
             "traverse5-itf": 8 * OPS_MT_SLOT + 33}
 # bytes per ray: o and d in (6 f32), t, tri, u, v out (4 x 4 bytes)
 RAY_BYTES = 40
+# lanes of a megakernel wave (models/megakernel.py WAVE_RAYS), and the
+# shares of them live in the masked launch: the megakernel's first
+# bounce, its mean over the sponza_proc frame (292.46M live of 671.1M
+# lane-launches), and its bounce 10 (12.3M of 67.1M)
+WAVE_LANES = 8 << 20
+LIVE_SHARES = (1.0, 0.44, 0.18)
+# the headline frame
+HEADLINE = dict(width=1024, height=1024, spp=64, max_depth=10, seed=0)
 
 
 def log(msg: str) -> None:
@@ -138,6 +159,26 @@ def phase_device() -> str:
     return smi
 
 
+# Per-SM limits of the H100 (CUDA occupancy rules for compute capability
+# 9.0): 65,536 registers allocated per warp in units of 256, 228 KB of
+# shared memory with 1 KB reserved per block, 32 blocks, 64 warps.
+SM_REGS, SM_SMEM, SM_BLOCKS, SM_WARPS = 65536, 228 * 1024, 32, 64
+# threads per block of each kernel (csrc/*.cu)
+BLOCK_THREADS = {"traverse8_kernel": 128, "traverse5_kernel": 128,
+                 "traverse1_kernel": 128, "compact_lanes_kernel": 256}
+
+
+def resident_warps(threads: int, regs: int, smem: int) -> int:
+    """Warps of one kernel resident on an SM at once, from its ptxas
+    registers per thread and static shared memory per block."""
+    warps = threads // 32
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(SM_REGS // (per_warp * warps), SM_BLOCKS,
+                 SM_WARPS // warps,
+                 SM_SMEM // (smem + 1024) if smem else SM_BLOCKS)
+    return blocks * warps
+
+
 def phase_build():
     from sycl_ray_tracer_torch.ops import kernels
 
@@ -146,11 +187,26 @@ def phase_build():
     secs = time.perf_counter() - t0
     log(f"[build] {os.path.relpath(path)} ({', '.join(kernels.CUDA_SOURCES)}"
         f") in {secs:.2f} s")
+    kernel = None
     with open(path + ".log") as f:
         for line in f:
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "error")):
                 log("[build]   " + line.strip())
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:
+                kernel = next((k for k in BLOCK_THREADS if k in m.group(1)),
+                              None)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                regs = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                smem = int(m.group(1)) if m else 0
+                log(f"[build]   {kernel}: {BLOCK_THREADS[kernel]} threads a "
+                    f"block, {regs} registers, {smem} bytes shared: "
+                    f"{resident_warps(BLOCK_THREADS[kernel], regs, smem)} "
+                    f"resident warps per SM")
+                kernel = None
     kernels.load_library()
 
 
@@ -219,7 +275,8 @@ def kernel_pair(name: str, scene, mt=None):
 
 
 def compare_hits(kern, plain, o, d, label: str,
-                 world_ties: bool = False, chains: bool = True) -> float:
+                 world_ties: bool = False, chains: bool = True,
+                 active=None) -> float:
     """Kernel against plain on the same rays; returns max |t| error on
     the lanes whose ids agree.
 
@@ -237,9 +294,12 @@ def compare_hits(kern, plain, o, d, label: str,
     window, counted, and their largest relative gap printed; every
     other hit must agree in t to rtol 1e-4, and lanes whose ids agree
     in u, v to atol 1e-4. chains=False skips the t_init check (traverse1
-    has no t_init)."""
-    k = kern(o, d)
-    p = plain(o, d)
+    has no t_init). With `active`, both run under that mask (inactive
+    lanes must agree as misses with t = 0) and the t_init and mask
+    checks are skipped."""
+    mask = {} if active is None else dict(active=active)
+    k = kern(o, d, **mask)
+    p = plain(o, d, **mask)
     torch.cuda.synchronize()
     kt, pt = k.t.cpu().numpy(), p.t.cpu().numpy()
     ki, pi = k.tri.cpu().numpy(), p.tri.cpu().numpy()
@@ -265,25 +325,31 @@ def compare_hits(kern, plain, o, d, label: str,
                                    b.cpu().numpy()[same], atol=1e-4)
     if not (ki[~hit] == -1).all() or not (kt[~hit] == pt[~hit]).all():
         raise AssertionError(f"{label}: miss lanes differ")
+    if active is not None:
+        chains = False
 
     # t_init chaining: nothing is strictly closer than the found t
     if chains and not bool((kern(o, d, t_init=k.t).tri == -1).all()):
         raise AssertionError(f"{label}: t_init = t still reports hits")
     # inactive lanes: t = 0, tri = -1, u = v = 0; active lanes unchanged
-    gen = torch.Generator(device="cpu").manual_seed(11)
-    active = (torch.rand(o.x.shape[0], generator=gen) < 0.5).to(o.x.device)
-    k3 = kern(o, d, active=active)
-    ina = ~active
-    if not (bool((k3.tri[ina] == -1).all()) and bool((k3.t[ina] == 0).all())
-            and bool((k3.u[ina] == 0).all())
-            and bool((k3.v[ina] == 0).all())):
-        raise AssertionError(f"{label}: inactive lanes not (0, -1, 0, 0)")
-    if not (bool((k3.tri[active] == k.tri[active]).all())
-            and bool((k3.t[active] == k.t[active]).all())):
-        raise AssertionError(f"{label}: active lanes changed with a mask")
+    if active is None:
+        gen = torch.Generator(device="cpu").manual_seed(11)
+        act = (torch.rand(o.x.shape[0], generator=gen) < 0.5).to(o.x.device)
+        k3 = kern(o, d, active=act)
+        ina = ~act
+        if not (bool((k3.tri[ina] == -1).all())
+                and bool((k3.t[ina] == 0).all())
+                and bool((k3.u[ina] == 0).all())
+                and bool((k3.v[ina] == 0).all())):
+            raise AssertionError(f"{label}: inactive lanes not "
+                                 "(0, -1, 0, 0)")
+        if not (bool((k3.tri[act] == k.tri[act]).all())
+                and bool((k3.t[act] == k.t[act]).all())):
+            raise AssertionError(f"{label}: active lanes changed with a "
+                                 "mask")
     err = float(np.abs(kt[same] - pt[same]).max()) if same.any() else 0.0
     broken = hit & (ki != pi)
-    rel = (np.abs(kt - pt) / pt)[world]
+    rel = np.abs(kt - pt)[world] / pt[world]
     log(f"[kernel] {label}: {o.x.shape[0]} rays, {hit.mean():.4f} hit, "
         f"{int(broken.sum())} tie-broken ids (kernel farther on "
         f"{int((kt[broken] > pt[broken]).sum())}), of which "
@@ -371,6 +437,105 @@ def bound(name: str, scene, kern, o, d, label: str):
         f"({t_ops * 1e3:.4f} ms)")
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_masked(kern, plain, o, d, smi: str, label: str) -> None:
+    """The masked launch: the rays (1M) tiled to a megakernel wave of
+    WAVE_LANES lanes, the kernel timed under seeded random masks with
+    each share of LIVE_SHARES live, and held against plain on the first
+    1M lanes under the same mask."""
+    from sycl_ray_tracer_torch.ops.vec import V3
+
+    n = o.x.shape[0]
+    tile = WAVE_LANES // n
+    ot, dt = (V3(*(c.repeat(tile) for c in v)) for v in (o, d))
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    out = {}
+    for share in LIVE_SHARES:
+        active = (torch.rand(WAVE_LANES, generator=gen) < share).to(
+            o.x.device)
+        live = int(active.sum())
+        compare_hits(kern, plain, *(V3(*(c[:n] for c in v)) for v in (ot, dt)),
+                     f"{label} {share:.0%} live, first {n} lanes",
+                     active=active[:n])
+        ms = time_ms(lambda: kern(ot, dt, active=active), 10)
+        log(f"[masked] {label} {WAVE_LANES} lanes, {live} live on {smi}: "
+            f"{ms:.3f} ms per launch, {ms / (live / 1e6):.4f} ms per million "
+            f"live lanes")
+        out[share] = ms
+    log(f"[masked] {label}: {LIVE_SHARES[-1]:.0%} live takes "
+        f"{out[LIVE_SHARES[-1]] / out[1.0]:.3f} of the all-live launch")
+
+
+def megakernel_bound(scene, cam, label: str) -> None:
+    """The bound of the megakernel frame's traverse8 launches: the frame
+    of phase_headline again (same seed, untimed), with the host build of
+    the walk run on each launch's lanes, split over the CPU cores. Its
+    hits must equal the kernel's; each launch's bound is the larger of
+    the bytes of all its lanes (rays, outputs and the mask) plus the
+    tables over the HBM rate, and the f32 operations of its live lanes'
+    walks over the f32 instruction rate."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sycl_ray_tracer_torch.models.megakernel import render_megakernel
+    from sycl_ray_tracer_torch.ops import kernels
+    from sycl_ray_tracer_torch.ops.intersect import Hit
+    from sycl_ray_tracer_torch.ops.vec import V3
+
+    tables = kernel_tables("traverse8", scene)
+    host_tables = [x.cpu() if isinstance(x, torch.Tensor) else x
+                   for x in tables]
+    tbytes = table_bytes(*(x for x in tables if isinstance(x, torch.Tensor)))
+    workers = len(os.sched_getaffinity(0))
+    per = []   # (lanes, live, boxes, leaves, bound ms) per launch
+    launch = kernels.launch
+
+    def host_chunk(cols, sl):
+        counts = torch.zeros(2, dtype=torch.int64)
+        o, d, act = cols
+        hit = kernels.run_host("traverse8", host_tables,
+                               V3(*(c[sl] for c in o)),
+                               V3(*(c[sl] for c in d)), act[sl],
+                               counts=counts)
+        return hit, counts
+
+    def counted_launch(name, tabs, o, d, active, t_init, device):
+        hit = launch(name, tabs, o, d, active, t_init, device)
+        if name != "traverse8" or active is None or t_init is not None:
+            raise AssertionError("the megakernel launches traverse8 with a "
+                                 "mask and no t_init")
+        n = o.x.shape[0]
+        cols = ([c.cpu() for c in o], [c.cpu() for c in d], active.cpu())
+        step = -(-n // workers)
+        parts = list(pool.map(lambda a: host_chunk(cols, slice(a, a + step)),
+                              range(0, n, step)))
+        host = Hit(*(torch.cat([p[0][i] for p in parts]) for i in range(4)))
+        if not all(torch.equal(a, b.cpu()) for a, b in zip(host, hit)):
+            raise AssertionError(f"{label}: the host walk's hits differ from "
+                                 "the kernel's")
+        boxes, leaves = sum(p[1] for p in parts).tolist()
+        nbytes = n * (RAY_BYTES + 1) + tbytes
+        ops = boxes * OPS_BOX + leaves * OPS_LEAF["traverse8"]
+        per.append((n, int(cols[2].sum()), boxes, leaves,
+                    max(nbytes / HBM_BYTES_PER_S, ops / F32_INSTR_PER_S)
+                    * 1e3))
+        return hit
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(workers) as pool:
+        kernels.launch = counted_launch
+        try:
+            render_megakernel(scene, cam, **HEADLINE)
+        finally:
+            kernels.launch = launch
+    lanes, live, boxes, leaves, ms = (sum(x) for x in zip(*per))
+    each = [p[4] for p in per]
+    log(f"[bound] {label}: {len(per)} launches, {lanes} lanes, {live} live; "
+        f"the walk slab-tests {boxes / live:.2f} child boxes and tests "
+        f"{leaves / live:.2f} leaves per live lane (host build in {workers} "
+        f"threads, equal hits, {time.perf_counter() - t0:.1f} s); bound "
+        f"{ms:.4f} ms in all, {min(each):.4f} to {max(each):.4f} ms per "
+        f"launch")
 
 
 def check_images(a: np.ndarray, b: np.ndarray, label: str,
@@ -554,6 +719,8 @@ def phase_mt_heap(heap, sah, host, smi: str):
                         "traverse1 sponza_proc leaf_size 4")
     b1 = bound("traverse1", heap, kern, *rays["bounce"],
                "traverse1 sponza_proc leaf_size 4 bounce 1M")
+    phase_masked(kern, plain, *rays["bounce"], smi,
+                 "traverse1 sponza_proc leaf_size 4 bounce")
     return err, times["bounce"], b1
 
 
@@ -642,7 +809,8 @@ def phase_headline(render, scene, cam, smi: str, label: str, kernel,
     (ops/kernels.py:launch) give the kernel's time within the frame."""
     from sycl_ray_tracer_torch.ops import kernels
 
-    kw = dict(width=1024, height=1024, max_depth=10)
+    kw = dict(width=HEADLINE["width"], height=HEADLINE["height"],
+              max_depth=HEADLINE["max_depth"])
     render(scene, cam, spp=1, seed=1, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -662,7 +830,7 @@ def phase_headline(render, scene, cam, smi: str, label: str, kernel,
     kernels.launch = timed_launch
     try:
         t0 = time.perf_counter()
-        img, rays = render(scene, cam, spp=64, seed=0, **kw)
+        img, rays = render(scene, cam, **HEADLINE)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
@@ -735,6 +903,7 @@ def main() -> int:
                         smi, "traverse8 sponza_proc")
     b8 = bound("traverse8", scene, kern, *bounce1m,
                "traverse8 sponza_proc bounce 1M")
+    phase_masked(kern, plain, *bounce1m, smi, "traverse8 sponza_proc bounce")
     del prim1m, bounce1m
     err5 = phase_mt_mode(scene, host, {"primary": prim, "bounce": bounce})
     del prim, bounce
@@ -757,6 +926,7 @@ def main() -> int:
     if not (mk_rays == rays8).all():
         raise AssertionError("megakernel and wavefront headline tallies "
                              "differ")
+    megakernel_bound(scene, cam, "sponza_proc scale 2 megakernel traverse8")
 
     # ---- the Morton-heap path (leaf_size 4, traverse1) ----
     t0 = time.perf_counter()

@@ -1,10 +1,12 @@
 // Per-ray closest-hit walk of a BVH8, generic over where the child ids
-// come from and over the leaf test.
+// come from and over the leaf test, and the types of every walk.
 //
-// Shared by the CUDA kernels (traverse8.cu, traverse5.cu, traverse1.cu,
-// built by nvcc for sm_90a) and the host build (walk_host.cpp, built by
-// g++ in the tests), so the walk the card runs is the code the CPU
-// tests check.
+// `walk` is the walk of the traverse5 kernel (traverse5.cu, built by
+// nvcc for sm_90a) and of its host build (walk_host.cpp, built by g++
+// in the tests), so the walk the card runs is the code the CPU tests
+// check. traverse8 and traverse1 run walk_regs.cuh, which computes the
+// same function in the same order with its per-node state in
+// registers.
 //
 // Node tables (models/scene.py):
 //   nodes     [NI, 48] f32: child boxes component-major, 8 lanes each of

@@ -1,5 +1,5 @@
 // K-slot Moller-Trumbore leaf test for the walk of the implicit Morton
-// heap (bvh8_walk.cuh with HeapChildren): the per-ray function of the
+// heap (walk_regs.cuh with HeapChildren): the per-ray function of the
 // traverse1 kernel.
 //
 // Tables (ops/wbvh.py:build_np, models/scene.py):
@@ -14,11 +14,15 @@
 // Each slot runs mt_slot (traverse5.cuh), whose expressions follow the
 // order of the JAX package's kernel (traverse_pallas.py:126-143) and of
 // ops/traverse1.py; built without FMA contraction, the three agree bit
-// for bit.
+// for bit. Where K is a multiple of 4 (a row of 36K bytes, so every
+// component group is 16-byte aligned), four slots at a time come from
+// nine 16-byte loads; other K read each value alone, with the same
+// slots tested in the same order.
 
 #pragma once
 
 #include "traverse5.cuh"
+#include "walk_regs.cuh"
 
 namespace srt {
 
@@ -28,6 +32,21 @@ struct HeapLeaf {
   SRT_HD void operator()(int64_t leaf, const Ray& r, float& tb,
                          HitOut& h) const {
     const float* row = leaves + leaf * 9 * k;
+    if ((k & 3) == 0) {
+      for (int g = 0; g < k; g += 4) {
+        F4 c[9];
+        SRT_UNROLL
+        for (int q = 0; q < 9; q++) c[q] = ld4(row + q * k + g);
+        SRT_UNROLL
+        for (int j = 0; j < 4; j++) {
+          mt_slot(part(c[0], j), part(c[1], j), part(c[2], j),
+                  part(c[3], j), part(c[4], j), part(c[5], j),
+                  part(c[6], j), part(c[7], j), part(c[8], j), r,
+                  (int32_t)(leaf * k + g + j), tb, h);
+        }
+      }
+      return;
+    }
     for (int j = 0; j < k; j++) {
       const float* c = row + j;
       mt_slot(c[0], c[k], c[2 * k], c[3 * k], c[4 * k], c[5 * k],
@@ -37,14 +56,13 @@ struct HeapLeaf {
   }
 };
 
+template <class Stack>
 SRT_HD HitOut trace1(const float* __restrict__ children,
                      const float* __restrict__ leaves, int32_t ni,
-                     int32_t k, int32_t rows, float ox, float oy, float oz,
-                     float dx, float dy, float dz, bool active,
-                     float t_init, WalkCounts* counts = nullptr) {
-  const Ray r{ox, oy, oz, dx, dy, dz};
-  return walk(children, HeapChildren{ni + rows}, ni, r, active, t_init,
-              HeapLeaf{leaves, k}, counts);
+                     int32_t k, int32_t rows, const Ray& r, bool active,
+                     float t_init, Stack& st, WalkCounts* counts = nullptr) {
+  return walk_regs(children, HeapChildren{ni + rows}, ni, r, active,
+                   t_init, HeapLeaf{leaves, k}, st, counts);
 }
 
 }  // namespace srt

@@ -1,4 +1,4 @@
-// Woop leaf test for the BVH8 walk (bvh8_walk.cuh): the per-ray function
+// Woop leaf test for the BVH8 walk (walk_regs.cuh): the per-ray function
 // of the traverse8 kernel.
 //
 // Leaf table (models/scene.py):
@@ -6,24 +6,41 @@
 //        translation tr (3). Dead and padding slots hold M = 0,
 //        tr = (0, 0, -1e30), which can never hit (-1/0 = -inf and
 //        0*inf = NaN: no fast math).
+// A slot is 48 bytes, read as three 16-byte loads.
 
 #pragma once
 
-#include "bvh8_walk.cuh"
+#include "walk_regs.cuh"
 
 namespace srt {
+
+// -1/x, correctly rounded: on the card the round-to-nearest reciprocal
+// (one instruction sequence, no division), on the host the division.
+// Both give the bits of IEEE -1.0f / x.
+SRT_HD float neg_rcp(float x) {
+#ifdef __CUDA_ARCH__
+  return -__frcp_rn(x);
+#else
+  return -1.0f / x;
+#endif
+}
 
 SRT_HD void woop_leaf(const float* __restrict__ woop, int64_t leaf,
                       const Ray& r, float& tb, HitOut& h) {
   const float* w = woop + leaf * 8 * 12;
+  SRT_UNROLL
   for (int s = 0; s < 8; s++, w += 12) {
-    const float opx = w[0] * r.ox + w[1] * r.oy + w[2] * r.oz + w[9];
-    const float opy = w[3] * r.ox + w[4] * r.oy + w[5] * r.oz + w[10];
-    const float opz = w[6] * r.ox + w[7] * r.oy + w[8] * r.oz + w[11];
-    const float dpx = w[0] * r.dx + w[1] * r.dy + w[2] * r.dz;
-    const float dpy = w[3] * r.dx + w[4] * r.dy + w[5] * r.dz;
-    const float dpz = w[6] * r.dx + w[7] * r.dy + w[8] * r.dz;
-    const float tt = opz * (-1.0f / dpz);
+    // M = (a.x a.y a.z / a.w b.x b.y / b.z b.w c.x), tr = (c.y c.z c.w)
+    const F4 a = ld4(w);
+    const F4 b = ld4(w + 4);
+    const F4 c = ld4(w + 8);
+    const float opx = a.x * r.ox + a.y * r.oy + a.z * r.oz + c.y;
+    const float opy = a.w * r.ox + b.x * r.oy + b.y * r.oz + c.z;
+    const float opz = b.z * r.ox + b.w * r.oy + c.x * r.oz + c.w;
+    const float dpx = a.x * r.dx + a.y * r.dy + a.z * r.dz;
+    const float dpy = a.w * r.dx + b.x * r.dy + b.y * r.dz;
+    const float dpz = b.z * r.dx + b.w * r.dy + c.x * r.dz;
+    const float tt = opz * neg_rcp(dpz);
     const float uu = opx + tt * dpx;
     const float vv = opy + tt * dpy;
     if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > kTnear &&
@@ -44,16 +61,14 @@ struct WoopLeaf {
   }
 };
 
+template <class Stack>
 SRT_HD HitOut trace8(const float* __restrict__ nodes,
                      const int32_t* __restrict__ child_ids,
                      const float* __restrict__ woop, int32_t ni,
-                     float ox, float oy, float oz,
-                     float dx, float dy, float dz,
-                     bool active, float t_init,
+                     const Ray& r, bool active, float t_init, Stack& st,
                      WalkCounts* counts = nullptr) {
-  const Ray r{ox, oy, oz, dx, dy, dz};
-  return walk(nodes, TableChildren{child_ids}, ni, r, active, t_init,
-              WoopLeaf{woop}, counts);
+  return walk_regs(nodes, TableChildren{child_ids}, ni, r, active, t_init,
+                   WoopLeaf{woop}, st, counts);
 }
 
 }  // namespace srt

@@ -23,12 +23,14 @@ extern "C" void srt_traverse8_host(const float* nodes,
                                    float* v_out, int64_t n_rays,
                                    int64_t* counts) {
   srt::WalkCounts wc{0, 0};
+  srt::ArrayStack st;
   for (int64_t i = 0; i < n_rays; i++) {
     const bool act = active == nullptr || active[i] != 0;
     const float t0 = t_init == nullptr ? srt::kBig : t_init[i];
-    const srt::HitOut h = srt::trace8(nodes, child_ids, woop, ni, ox[i],
-                                      oy[i], oz[i], dx[i], dy[i], dz[i],
-                                      act, t0, &wc);
+    const srt::HitOut h = srt::trace8(
+        nodes, child_ids, woop, ni,
+        srt::Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]}, act, t0, st,
+        &wc);
     t_out[i] = h.t;
     tri_out[i] = h.tri;
     u_out[i] = h.u;
@@ -84,12 +86,14 @@ extern "C" void srt_traverse1_host(const float* children,
                                    float* v_out, int64_t n_rays,
                                    int64_t* counts) {
   srt::WalkCounts wc{0, 0};
+  srt::ArrayStack st;
   for (int64_t i = 0; i < n_rays; i++) {
     const bool act = active == nullptr || active[i] != 0;
     const float t0 = t_init == nullptr ? srt::kBig : t_init[i];
-    const srt::HitOut h = srt::trace1(children, leaves, ni, k, rows, ox[i],
-                                      oy[i], oz[i], dx[i], dy[i], dz[i],
-                                      act, t0, &wc);
+    const srt::HitOut h = srt::trace1(
+        children, leaves, ni, k, rows,
+        srt::Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]}, act, t0, st,
+        &wc);
     t_out[i] = h.t;
     tri_out[i] = h.tri;
     u_out[i] = h.u;

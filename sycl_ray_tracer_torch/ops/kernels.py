@@ -31,6 +31,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 CUDA_SOURCES = ("traverse8.cu", "traverse5.cu", "traverse1.cu")
+# kernels whose C entry takes scheduling scratch after n_rays: the list
+# of live lanes (int32 [R], with an active mask) and two zeroed 64-bit
+# counters (csrc/schedule.cuh)
+SCHEDULED = ("traverse8", "traverse1")
 HOST_SOURCE = "walk_host.cpp"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math (dead slots need IEEE inf/NaN). FMA contraction is
@@ -149,7 +153,10 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = _bind(ctypes.CDLL(build_library()), "", [_I64, _P])
         for name in _TABLES:
-            getattr(lib, f"srt_{name}").restype = ctypes.c_int
+            fn = getattr(lib, f"srt_{name}")
+            fn.restype = ctypes.c_int
+            if name in SCHEDULED:
+                fn.argtypes = fn.argtypes[:-1] + [_P, _P, _P]
         _lib = lib
     return _lib
 
@@ -186,6 +193,13 @@ def check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless t's data starts on a 16-byte boundary: the kernels
+    read tables with 16-byte loads."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def check_rays(o: V3, d: V3, active, t_init, device) -> None:
     """Check the ray columns of a launch."""
     r = o.x.shape[0]
@@ -207,6 +221,8 @@ def launch(name: str, tables: list, o: V3, d: V3, active, t_init,
     checked inputs (tables are tensors, or ints passed as int32);
     raises if CUDA reports an error for the launch."""
     r = o.x.shape[0]
+    if r >= 2**31:
+        raise ValueError(f"{name}: at most 2**31 - 1 rays per launch")
     t = torch.empty((r,), dtype=torch.float32, device=device)
     tri = torch.empty((r,), dtype=torch.int32, device=device)
     u = torch.empty((r,), dtype=torch.float32, device=device)
@@ -214,10 +230,19 @@ def launch(name: str, tables: list, o: V3, d: V3, active, t_init,
     fn = getattr(load_library(), f"srt_{name}")
     args = [x if isinstance(x, int) else _ptr(x) for x in tables]
     with torch.cuda.device(device):
+        # the scratch may be freed once the launch is queued: the caching
+        # allocator gives its memory only to work queued after it on
+        # this stream
+        scratch = []
+        if name in SCHEDULED:
+            lanes = (None if active is None else
+                     torch.empty((r,), dtype=torch.int32, device=device))
+            counters = torch.zeros((2,), dtype=torch.int64, device=device)
+            scratch = [_ptr(lanes), counters.data_ptr()]
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, *(c.data_ptr() for c in (*o, *d)), _ptr(active),
                  _ptr(t_init), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-                 v.data_ptr(), r, stream)
+                 v.data_ptr(), r, *scratch, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return Hit(t=t, tri=tri, u=u, v=v)

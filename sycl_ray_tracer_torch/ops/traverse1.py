@@ -16,10 +16,11 @@ The visit order is nearest child first (the JAX kernel pushes in the
 packet's dominant-octant order): only equal-t ties can differ.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/traverse1.cu, one thread per ray, built with nvcc for sm_90a at
-first use by ops/kernels.py); on a CPU tensor it runs
-`traverse1_plain`, the same function in plain torch. There is no
-fallback between the two.
+(csrc/traverse1.cu: persistent warps over the rays, or over the live
+lanes of `active`; built with nvcc for sm_90a at first use by
+ops/kernels.py); the tables must start on 16-byte boundaries. On a
+CPU tensor it runs `traverse1_plain`, the same function in plain
+torch. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ def traverse1(children: torch.Tensor, leaves: torch.Tensor, ni: int,
     kernels.check("leaves", leaves, torch.float32, (rows, 9 * leaf_size),
                   dev)
     kernels.check_rays(o, d, active, None, dev)
+    kernels.check_aligned("children", children)
+    kernels.check_aligned("leaves", leaves)
     hit = kernels.launch("traverse1", [children, leaves, ni, leaf_size, rows],
                          o, d, active, None, dev)
     traverse1.launches += 1

@@ -10,10 +10,11 @@ such a hit get tri = -1 and t = t_init; inactive rays get t = 0 and
 tri = -1; u = v = 0 whenever tri = -1.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/traverse8.cu, one thread per ray, built with nvcc for sm_90a at
-first use by ops/kernels.py); on a CPU tensor it runs
-`traverse8_plain`, the same function in plain torch. There is no
-fallback between the two.
+(csrc/traverse8.cu: persistent warps over the rays, or over the live
+lanes of `active`; built with nvcc for sm_90a at first use by
+ops/kernels.py); the tables must start on 16-byte boundaries. On a
+CPU tensor it runs `traverse8_plain`, the same function in plain
+torch. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -43,6 +44,9 @@ def traverse8(nodes: torch.Tensor, child_ids: torch.Tensor,
     kernels.check("child_ids", child_ids, torch.int32, (ni, 8), dev)
     kernels.check("woop", woop, torch.float32, (woop.shape[0], 12), dev)
     kernels.check_rays(o, d, active, t_init, dev)
+    for name, t in (("nodes", nodes), ("child_ids", child_ids),
+                    ("woop", woop)):
+        kernels.check_aligned(name, t)
     hit = kernels.launch("traverse8", [nodes, child_ids, woop, ni], o, d,
                          active, t_init, dev)
     traverse8.launches += 1

@@ -3,9 +3,10 @@ test: the body of traverse8_plain (Woop leaves), traverse5_plain
 (Moller-Trumbore leaves, optionally instance-transformed) and
 traverse1_plain (K-slot Moller-Trumbore leaves of the Morton heap).
 
-It computes the function of the kernels' per-ray walk
-(csrc/bvh8_walk.cuh) over all rays at once: each level slab-tests all
-8 children of every (ray, node) pair, tests the accepted leaves, folds
+It computes the function of the kernels' per-ray walks
+(csrc/walk_regs.cuh, csrc/bvh8_walk.cuh) over all rays at once: each
+level slab-tests all 8 children of every (ray, node) pair, tests the
+accepted leaves, folds
 the per-ray minimum into t_best with scatter_reduce("amin"), and
 descends into the accepted internal children. The order of the walk
 differs from the kernel's depth-first one, so equal-t ties between

@@ -1,5 +1,6 @@
 """Tests of the port that need the card: the CUDA kernels against their
-plain versions, the wrappers' input checks, and small renders (baked,
+plain versions and their host builds (at ray counts around a warp, and
+under masks), the wrappers' input checks, and small renders (baked,
 Morton heap through the megakernel, and two-level instanced) on cuda
 against the same renders on the cpu. They
 skip without a CUDA device.
@@ -27,6 +28,7 @@ from sycl_ray_tracer_torch.utils import procgen as tproc
 from sycl_ray_tracer_torch.utils.gltf import load_glb
 from sycl_ray_tracer_torch.models.scene import build_device_scene
 from sycl_ray_tracer_torch.models.camera import make_camera
+from sycl_ray_tracer_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -253,3 +255,96 @@ def test_megakernel_heap_cuda_matches_cpu(cuda):
     d = np.abs(a - b).max(axis=-1)
     assert (d > 0.05).mean() < 5e-3
     assert float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2))) < 4e-3
+
+
+_SPONZA = {}
+
+
+def _sponza_kernel(name, dev):
+    """(kernel, plain, host tables, kernel name) of traverse8 (SAH tree)
+    or traverse1 (Morton heap, K = 4) on sponza scale 1, and its host."""
+    if name not in _SPONZA:
+        host = load_glb(tproc.sponza_like_glb(scale=1))
+        if name == "traverse8":
+            sc = build_device_scene(host, device=dev)
+            tabs = [sc.bvh_nodes, sc.bvh_child_ids, sc.bvh_woop, sc.sah_ni]
+            kern, plain = t8.traverse8, t8.traverse8_plain
+            ktabs = tabs
+        else:
+            sc = build_device_scene(host, leaf_size=4, device=dev)
+            tabs = [sc.bvh_children, sc.bvh_leaves, sc.bvh_ni, 4,
+                    sc.bvh_leaves.shape[0]]
+            kern, plain = t1.traverse1, t1.traverse1_plain
+            ktabs = tabs[:4]
+        _SPONZA[name] = (host, ktabs, tabs, kern, plain)
+    return _SPONZA[name]
+
+
+def _hold(name, dev, r, active=None, seed=15):
+    """The kernel on r rays (and a mask) against plain (ids equal outside
+    1e-6-relative t ties, t, u, v equal bit for bit where they agree)
+    and against its host build (equal bit for bit, ties included)."""
+    host, ktabs, tabs, kern, plain = _sponza_kernel(name, dev)
+    o, d = _rays(host, r, seed, dev)
+    mask = {} if active is None else dict(active=active)
+    before = kern.launches
+    k = kern(*ktabs, o, d, **mask)
+    assert kern.launches == before + 1
+    p = plain(*ktabs, o, d, **mask)
+    torch.cuda.synchronize()
+    assert torch.equal(k.tri >= 0, p.tri >= 0)
+    tie = (k.t - p.t).abs() <= 1e-6 * p.t.abs()
+    same = k.tri == p.tri
+    assert not bool((~same & ~tie).any())
+    for a, b in ((k.t, p.t), (k.u, p.u), (k.v, p.v)):
+        assert torch.equal(a[same], b[same])
+    cpu = lambda v: V3(*(c.cpu() for c in v))
+    h = kernels.run_host(
+        name, [x.cpu() if isinstance(x, torch.Tensor) else x for x in tabs],
+        cpu(o), cpu(d), None if active is None else active.cpu())
+    for a, b in zip(h, k):
+        assert torch.equal(a, b.cpu())
+    return k
+
+
+@pytest.mark.parametrize("name", ["traverse8", "traverse1"])
+@pytest.mark.parametrize("r", [0, 1, 31, 33, 1 << 20])
+def test_kernel_matches_plain_and_host_at_ray_counts(cuda, name, r):
+    k = _hold(name, cuda, r)
+    assert k.t.shape == (r,)
+
+
+@pytest.mark.parametrize("name", ["traverse8", "traverse1"])
+@pytest.mark.parametrize("mask", ["none", "sparse", "last_of_warp"])
+def test_kernel_matches_plain_and_host_under_masks(cuda, name, mask):
+    """No lane active, 5 % at random, and only the last lane of each
+    warp: the live lanes are compacted before the walk, the others
+    report (0, -1, 0, 0)."""
+    r = 65536
+    lane = torch.arange(r, device=cuda)
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    active = {"none": torch.zeros(r, dtype=torch.bool, device=cuda),
+              "sparse": (torch.rand(r, generator=gen) < 0.05).to(cuda),
+              "last_of_warp": lane % 32 == 31}[mask]
+    k = _hold(name, cuda, r, active)
+    ina = ~active
+    assert bool((k.t[ina] == 0).all()) and bool((k.tri[ina] == -1).all())
+    assert bool((k.u[ina] == 0).all()) and bool((k.v[ina] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["traverse8", "traverse1"])
+def test_wrapper_refuses_misaligned_tables(cuda, name):
+    """A table view that starts 4 bytes past a 16-byte boundary is
+    refused: the kernels read tables with 16-byte loads."""
+    host, ktabs, _, kern, _ = _sponza_kernel(name, cuda)
+    o, d = _rays(host, 64, 1, cuda)
+    for i, t in enumerate(ktabs[:-1]):
+        if not isinstance(t, torch.Tensor):
+            continue
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        bad = list(ktabs)
+        bad[i] = view
+        with pytest.raises(ValueError, match="16-byte"):
+            kern(*bad, o, d)

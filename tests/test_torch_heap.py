@@ -4,8 +4,9 @@ models/trace.py:intersect_scene) against the JAX package on the same
 inputs: the tables, the plain version against interpret-mode
 traverse_packets (v1) and brute force at K in {1, 4, 8}, against the
 XLA heap walk the JAX package runs on the CPU, the g++ build of the
-kernel's per-ray walk against the plain version, and the dispatch
-against the SAH path of the same scene."""
+kernel's per-ray walk against the plain version (its work pinned on
+fixed rays), and the dispatch against the SAH path of the same
+scene."""
 
 import shutil
 
@@ -26,10 +27,12 @@ from sycl_ray_tracer_torch.ops import sah as tsah
 from sycl_ray_tracer_torch.ops import traverse1 as t1
 from sycl_ray_tracer_torch.ops.traverse5 import traverse5_plain
 from sycl_ray_tracer_torch.ops import wbvh as twbvh
+from sycl_ray_tracer_torch.ops.vec import V3
 from sycl_ray_tracer_torch.utils import fixtures as tfix
 from sycl_ray_tracer_torch.utils import procgen as tproc
 
-from tests.torch_common import jv3, tv3
+from tests.torch_common import (host_vs_plain, jv3, lane_mask, pinned_rays,
+                                tv3)
 
 
 def _random_tris(n, seed, spread=5.0):
@@ -319,6 +322,52 @@ def test_kernel_walk_host_build_matches_plain(k):
                                                slice(r // 2, r))]
     assert [a + b for a, b in zip(*halves)] == counts
     assert run(o, d, torch.zeros(r, dtype=torch.bool))[1] == [0, 0]
+
+
+# Work of traverse1's walk at K = 4 on the pinned rays of sponza_proc
+# scale 1 (tests/torch_common.py:pinned_rays): [child boxes slab-tested,
+# leaves tested], counted by the host build of the walk as it stood
+# before the kernel's redesign, which keeps the order of the walk.
+_PINNED1 = {"primary": [428080, 17108], "bounce": [481688, 20572]}
+
+
+def _heap_frame():
+    s = _sponza()
+    if "rays" not in s:
+        heap = s["heap"]
+        s["tables"] = [heap.bvh_children, heap.bvh_leaves, heap.bvh_ni, 4,
+                       heap.bvh_leaves.shape[0]]
+        s["rays"] = pinned_rays(heap, s["cam"])
+    return s["tables"], s["rays"]
+
+
+@pytest.mark.parametrize("which", ["primary", "bounce"])
+def test_kernel_walk_pinned_counts(which):
+    _host_lib()
+    tables, rays = _heap_frame()
+    q = rays[which]
+    counts = torch.zeros(2, dtype=torch.int64)
+    kernels.run_host("traverse1", tables, V3(*q[:3]), V3(*q[3:]),
+                     counts=counts)
+    assert counts.tolist() == _PINNED1[which]
+
+
+@pytest.mark.parametrize("mask", ["none", "one", "sparse", "all"])
+def test_kernel_walk_matches_plain_under_masks(mask):
+    """The host build of traverse1's walk at K = 4 against
+    traverse1_plain on the pinned primary and bounce rays, with no lane,
+    one lane, about 45 % (seeded) and every lane active: equal bit for
+    bit where the ids agree, ids equal outside equal-t ties."""
+    _host_lib()
+    tables, rays = _heap_frame()
+    for q in rays.values():
+        o, d = V3(*q[:3]), V3(*q[3:])
+        active = lane_mask(mask, q.shape[1], 33)
+        host = kernels.run_host("traverse1", tables, o, d, active=active)
+        plain = t1.traverse1_plain(*tables[:4], o, d, active=active)
+        host_vs_plain(host, plain)
+        assert int((host.tri >= 0).sum()) <= int(active.sum())
+        assert (host.t[~active] == 0).all()
 
 
 def test_scene_build_checks(tmp_path):

@@ -1,8 +1,9 @@
 """Port intersectors (ops/traverse8.py, ops/traverse5.py): the plain
 torch versions against the JAX package's Woop reference and CPU
-traversal, and the kernels' own per-ray walks (csrc/bvh8_walk.cuh with
-the leaf tests of traverse8.cuh and traverse5.cuh, built here with g++)
-against the plain versions."""
+traversal, and the kernels' own per-ray walks (csrc/walk_regs.cuh and
+csrc/bvh8_walk.cuh with the leaf tests of traverse8.cuh and
+traverse5.cuh, built here with g++) against the plain versions, with
+traverse8's walk pinned to its work on fixed rays."""
 
 import shutil
 
@@ -12,17 +13,20 @@ import torch
 
 from sycl_ray_tracer_tpu.ops import woop as jwoop
 from sycl_ray_tracer_torch.models import trace as ttrace
+from sycl_ray_tracer_torch.models.camera import make_camera
 from sycl_ray_tracer_torch.models.instanced import (
     build_instanced_device_scene)
 from sycl_ray_tracer_torch.ops import kernels
 from sycl_ray_tracer_torch.ops import sah as tsah
 from sycl_ray_tracer_torch.ops import traverse5 as t5
 from sycl_ray_tracer_torch.ops import traverse8 as t8
+from sycl_ray_tracer_torch.ops.vec import V3
 from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
 from sycl_ray_tracer_torch.utils import fixtures as tfix
 from sycl_ray_tracer_torch.utils import procgen as tproc
 
-from tests.torch_common import port_pair, tv3
+from tests.torch_common import (host_vs_plain, lane_mask, pinned_rays,
+                                port_pair, tv3)
 
 _PAIRS = {}
 
@@ -183,6 +187,80 @@ def test_kernel_walk_host_build_matches_plain(name, r):
     assert (t3[active] == t[active]).all()
 
 
+# Work of traverse8's walk on the pinned rays of sponza_proc scale 1
+# (tests/torch_common.py:pinned_rays): [child boxes slab-tested, leaves
+# tested], counted by the host build of the walk as it stood before
+# the kernel's redesign. The redesign keeps the order of the walk, so it
+# visits the same nodes and tests the same leaves.
+_PINNED8 = {"primary": [69021, 2739], "bounce": [61389, 2231]}
+_FRAME = {}
+
+
+def _frame():
+    """(tables of traverse8, {primary, bounce: [6, 2048]}) on sponza
+    scale 1 at a 64x32 camera."""
+    if not _FRAME:
+        host, scene, _ = _pair("sponza")
+        cam = make_camera(64, 32, host.camera_position,
+                          host.camera_direction, host.camera_focal_length,
+                          device="cpu")
+        _FRAME.update(tables=[scene.bvh_nodes, scene.bvh_child_ids,
+                              scene.bvh_woop, scene.sah_ni],
+                      rays=pinned_rays(scene, cam))
+    return _FRAME["tables"], _FRAME["rays"]
+
+
+@pytest.mark.parametrize("which", ["primary", "bounce"])
+def test_kernel_walk_pinned_counts(which):
+    _host_lib()
+    tables, rays = _frame()
+    q = rays[which]
+    counts = torch.zeros(2, dtype=torch.int64)
+    kernels.run_host("traverse8", tables, V3(*q[:3]), V3(*q[3:]),
+                     counts=counts)
+    assert counts.tolist() == _PINNED8[which]
+
+
+@pytest.mark.parametrize("mask", ["none", "one", "sparse", "all"])
+def test_kernel_walk_matches_plain_under_masks(mask):
+    """The host build of traverse8's walk against traverse8_plain on the
+    pinned primary and bounce rays under each mask: equal bit for bit
+    where the ids agree, ids equal outside equal-t ties."""
+    _host_lib()
+    tables, rays = _frame()
+    for q in rays.values():
+        o, d = V3(*q[:3]), V3(*q[3:])
+        active = lane_mask(mask, q.shape[1], 31)
+        host = kernels.run_host("traverse8", tables, o, d, active=active)
+        plain = t8.traverse8_plain(*tables, o, d, active=active)
+        host_vs_plain(host, plain)
+        assert int((host.tri >= 0).sum()) <= int(active.sum())
+        assert (host.t[~active] == 0).all()
+
+
+def test_kernel_walk_t_init_chaining():
+    """t_init on the host build as on plain: a seeded mix of incumbents
+    below and above the closest hit gives equal results, and chaining
+    on the found t finds nothing closer."""
+    _host_lib()
+    tables, rays = _frame()
+    q = rays["bounce"]
+    o, d = V3(*q[:3]), V3(*q[3:])
+    first = t8.traverse8_plain(*tables, o, d)
+    scale = torch.from_numpy(
+        np.random.RandomState(32).uniform(0.5, 1.5, q.shape[1])
+        .astype(np.float32))
+    t_init = torch.where(first.tri >= 0, first.t * scale,
+                         torch.full_like(first.t, 50.0))
+    host = kernels.run_host("traverse8", tables, o, d, t_init=t_init)
+    plain = t8.traverse8_plain(*tables, o, d, t_init=t_init)
+    host_vs_plain(host, plain)
+    assert ((host.tri < 0) & (host.t != t_init)).sum() == 0
+    assert 0 < int((host.tri >= 0).sum()) < int((first.tri >= 0).sum())
+    again = kernels.run_host("traverse8", tables, o, d, t_init=host.t)
+    assert (again.tri == -1).all() and torch.equal(again.t, host.t)
+
+
 def test_wrapper_rejects_non_cpu_non_cuda_and_checks_stack():
     host, scene, _ = _pair("cube")
     o, d = _rays(host, 8, 1)
@@ -292,3 +370,15 @@ def test_traverse5_wrapper_checks_inputs():
     hit = t5.traverse5(nodes, ids, mt, ni, o, d, leaf_slot=slot,
                        leaf_xf=xf)
     assert t5.traverse5.launches == before and hit.t.shape == (8,)
+
+
+def test_alignment_check():
+    """The kernels read tables with 16-byte loads: the wrappers refuse a
+    table that starts off a 16-byte boundary (checked here on the CPU,
+    where the wrappers themselves run the plain versions)."""
+    base = torch.zeros(8 * 48 + 4)
+    kernels.check_aligned("nodes", base)
+    for off in (1, 2, 3):
+        with pytest.raises(ValueError, match="16-byte"):
+            kernels.check_aligned("nodes", base[off:off + 8 * 48].view(8, 48))
+    kernels.check_aligned("nodes", base[4:4 + 8 * 48].view(8, 48))
