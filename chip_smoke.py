@@ -36,10 +36,10 @@ Phases (any failure raises and exits non-zero):
 8. the megakernel headline: render_megakernel on the same scene, as 7;
    traverse8 launches once per bounce of each wave, and the per-bounce
    tallies equal those of 7 (same scene and seed); then the frame again,
-   untimed, with the host build of the walk run on each launch's lanes:
-   its hits must equal the kernel's, and its work on the live lanes
-   plus the bytes of all lanes give the bound of each of the 80
-   launches;
+   untimed, with the host build of the walk run on each launch's live
+   lanes: its hits must equal the kernel's, dead lanes must report
+   (0, -1, 0, 0), and its work on the live lanes plus the bytes of all
+   lanes give the bound of each of the 80 launches;
 9. traverse1 against plain on sponza_proc scale 2 built with
    leaf_size=4 (the Morton heap): 65,536 primary and 65,536
    first-bounce rays, then 1M of each, with the rules of 3 (v1 has no
@@ -68,10 +68,16 @@ Phases (any failure raises and exits non-zero):
    and table bytes; traverse5 (itf mode) against plain on 65,536 and
    1M primary and 1M first-bounce rays with the rules of 3 (ties in
    world units, see compare_hits), the times of kernel and plain at 1M
-   rays, and the bound as in 4;
+   rays, the bound as in 4, and the masked launch of 4b on the 1M
+   bounce rays (with the same world-unit ties);
 15. the instanced headline render: minecraft_proc --shared-instances,
    as 7; checks that every bounce launched traverse5 once and traverse8
-   and traverse1 never.
+   and traverse1 never;
+16. the megakernel on the same scene (the CLI's -m --shared-instances):
+   as 8, with traverse5 launched masked once per bounce of each wave and
+   tallies equal to those of 15; its bound as in 8, from the host walk
+   on a sample, every 8th live lane of each launch, whose hits must
+   equal the kernel's there, with the counted work scaled by 8.
 
 Every headline frame also reports its kernel's time within the frame,
 from CUDA events around each launch.
@@ -197,12 +203,15 @@ def phase_build():
             if m:
                 kernel = next((k for k in BLOCK_THREADS if k in m.group(1)),
                               None)
+                mode = ("itf" if "InstancedMtLeaf" in m.group(1) else
+                        "MT" if "MtLeaf" in m.group(1) else "")
             m = re.search(r"Used (\d+) registers", line)
             if m and kernel:
                 regs = int(m.group(1))
                 m = re.search(r"(\d+) bytes smem", line)
                 smem = int(m.group(1)) if m else 0
-                log(f"[build]   {kernel}: {BLOCK_THREADS[kernel]} threads a "
+                log(f"[build]   {kernel}{' ' + mode if mode else ''}: "
+                    f"{BLOCK_THREADS[kernel]} threads a "
                     f"block, {regs} registers, {smem} bytes shared: "
                     f"{resident_warps(BLOCK_THREADS[kernel], regs, smem)} "
                     f"resident warps per SM")
@@ -439,11 +448,12 @@ def bound(name: str, scene, kern, o, d, label: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_masked(kern, plain, o, d, smi: str, label: str) -> None:
+def phase_masked(kern, plain, o, d, smi: str, label: str,
+                 world_ties: bool = False) -> None:
     """The masked launch: the rays (1M) tiled to a megakernel wave of
     WAVE_LANES lanes, the kernel timed under seeded random masks with
     each share of LIVE_SHARES live, and held against plain on the first
-    1M lanes under the same mask."""
+    1M lanes under the same mask (world_ties as in compare_hits)."""
     from sycl_ray_tracer_torch.ops.vec import V3
 
     n = o.x.shape[0]
@@ -457,7 +467,7 @@ def phase_masked(kern, plain, o, d, smi: str, label: str) -> None:
         live = int(active.sum())
         compare_hits(kern, plain, *(V3(*(c[:n] for c in v)) for v in (ot, dt)),
                      f"{label} {share:.0%} live, first {n} lanes",
-                     active=active[:n])
+                     world_ties=world_ties, active=active[:n])
         ms = time_ms(lambda: kern(ot, dt, active=active), 10)
         log(f"[masked] {label} {WAVE_LANES} lanes, {live} live on {smi}: "
             f"{ms:.3f} ms per launch, {ms / (live / 1e6):.4f} ms per million "
@@ -467,56 +477,69 @@ def phase_masked(kern, plain, o, d, smi: str, label: str) -> None:
         f"{out[LIVE_SHARES[-1]] / out[1.0]:.3f} of the all-live launch")
 
 
-def megakernel_bound(scene, cam, label: str) -> None:
-    """The bound of the megakernel frame's traverse8 launches: the frame
-    of phase_headline again (same seed, untimed), with the host build of
-    the walk run on each launch's lanes, split over the CPU cores. Its
-    hits must equal the kernel's; each launch's bound is the larger of
-    the bytes of all its lanes (rays, outputs and the mask) plus the
-    tables over the HBM rate, and the f32 operations of its live lanes'
-    walks over the f32 instruction rate."""
+def megakernel_bound(scene, cam, label: str, name: str = "traverse8",
+                     stride: int = 1) -> None:
+    """The bound of the megakernel frame's launches of kernel `name`: the
+    frame of phase_headline again (same seed, untimed), with the host
+    build of the walk run on every `stride`-th live lane of each launch,
+    split over the CPU cores. Its hits must equal the kernel's on those
+    lanes, and every dead lane must report (0, -1, 0, 0). Each launch's
+    bound is the larger of the bytes of all its lanes (rays, outputs and
+    the mask) plus the tables over the HBM rate, and the f32 operations
+    of the sampled lanes' walks, times `stride`, over the f32
+    instruction rate."""
     from concurrent.futures import ThreadPoolExecutor
 
     from sycl_ray_tracer_torch.models.megakernel import render_megakernel
     from sycl_ray_tracer_torch.ops import kernels
-    from sycl_ray_tracer_torch.ops.intersect import Hit
     from sycl_ray_tracer_torch.ops.vec import V3
 
-    tables = kernel_tables("traverse8", scene)
+    tables = kernel_tables(name, scene)
     host_tables = [x.cpu() if isinstance(x, torch.Tensor) else x
                    for x in tables]
     tbytes = table_bytes(*(x for x in tables if isinstance(x, torch.Tensor)))
+    ops_leaf = OPS_LEAF[name + ("-itf" if scene.has_instances else "")]
     workers = len(os.sched_getaffinity(0))
-    per = []   # (lanes, live, boxes, leaves, bound ms) per launch
+    per = []   # (lanes, live, walked, boxes, leaves, bound ms) per launch
     launch = kernels.launch
 
-    def host_chunk(cols, sl):
+    def host_chunk(o, d, sl):
         counts = torch.zeros(2, dtype=torch.int64)
-        o, d, act = cols
-        hit = kernels.run_host("traverse8", host_tables,
-                               V3(*(c[sl] for c in o)),
-                               V3(*(c[sl] for c in d)), act[sl],
-                               counts=counts)
+        hit = kernels.run_host(name, host_tables, V3(*(c[sl] for c in o)),
+                               V3(*(c[sl] for c in d)), counts=counts)
         return hit, counts
 
-    def counted_launch(name, tabs, o, d, active, t_init, device):
-        hit = launch(name, tabs, o, d, active, t_init, device)
-        if name != "traverse8" or active is None or t_init is not None:
-            raise AssertionError("the megakernel launches traverse8 with a "
+    def counted_launch(kname, tabs, o, d, active, t_init, device):
+        hit = launch(kname, tabs, o, d, active, t_init, device)
+        if kname != name or active is None or t_init is not None:
+            raise AssertionError(f"the megakernel launches {name} with a "
                                  "mask and no t_init")
         n = o.x.shape[0]
-        cols = ([c.cpu() for c in o], [c.cpu() for c in d], active.cpu())
-        step = -(-n // workers)
-        parts = list(pool.map(lambda a: host_chunk(cols, slice(a, a + step)),
-                              range(0, n, step)))
-        host = Hit(*(torch.cat([p[0][i] for p in parts]) for i in range(4)))
-        if not all(torch.equal(a, b.cpu()) for a, b in zip(host, hit)):
-            raise AssertionError(f"{label}: the host walk's hits differ from "
-                                 "the kernel's")
-        boxes, leaves = sum(p[1] for p in parts).tolist()
+        live = active.nonzero().squeeze(1)
+        lanes = live[::stride]
+        dead = ~active
+        if not (bool((hit.t[dead] == 0).all())
+                and bool((hit.tri[dead] == -1).all())
+                and bool((hit.u[dead] == 0).all())
+                and bool((hit.v[dead] == 0).all())):
+            raise AssertionError(f"{label}: dead lanes not (0, -1, 0, 0)")
+        oc, dc = ([c[lanes].cpu() for c in v] for v in (o, d))
+        m = lanes.shape[0]
+        step = max(1, -(-m // workers))
+        parts = list(pool.map(lambda a: host_chunk(oc, dc,
+                                                   slice(a, a + step)),
+                              range(0, m, step)))
+        for i, h in enumerate(hit):
+            got = h[lanes].cpu()
+            want = torch.cat([p[0][i] for p in parts]) if parts else got
+            if not torch.equal(want, got):
+                raise AssertionError(f"{label}: the host walk's hits differ "
+                                     "from the kernel's")
+        boxes, leaves = (sum(p[1] for p in parts).tolist() if parts
+                         else [0, 0])
         nbytes = n * (RAY_BYTES + 1) + tbytes
-        ops = boxes * OPS_BOX + leaves * OPS_LEAF["traverse8"]
-        per.append((n, int(cols[2].sum()), boxes, leaves,
+        ops = (boxes * OPS_BOX + leaves * ops_leaf) * stride
+        per.append((n, live.shape[0], m, boxes, leaves,
                     max(nbytes / HBM_BYTES_PER_S, ops / F32_INSTR_PER_S)
                     * 1e3))
         return hit
@@ -528,14 +551,17 @@ def megakernel_bound(scene, cam, label: str) -> None:
             render_megakernel(scene, cam, **HEADLINE)
         finally:
             kernels.launch = launch
-    lanes, live, boxes, leaves, ms = (sum(x) for x in zip(*per))
-    each = [p[4] for p in per]
+    lanes, live, walked, boxes, leaves, ms = (sum(x) for x in zip(*per))
+    each = [p[5] for p in per]
+    sample = ("every live lane" if stride == 1 else
+              f"a sample: every {stride}th live lane, {walked} lanes, work "
+              f"scaled by {stride}")
     log(f"[bound] {label}: {len(per)} launches, {lanes} lanes, {live} live; "
-        f"the walk slab-tests {boxes / live:.2f} child boxes and tests "
-        f"{leaves / live:.2f} leaves per live lane (host build in {workers} "
-        f"threads, equal hits, {time.perf_counter() - t0:.1f} s); bound "
-        f"{ms:.4f} ms in all, {min(each):.4f} to {max(each):.4f} ms per "
-        f"launch")
+        f"host walk on {sample}; it slab-tests {boxes / walked:.2f} child "
+        f"boxes and tests {leaves / walked:.2f} leaves per walked lane (host "
+        f"build in {workers} threads, equal hits, "
+        f"{time.perf_counter() - t0:.1f} s); bound {ms:.4f} ms in all, "
+        f"{min(each):.4f} to {max(each):.4f} ms per launch")
 
 
 def check_images(a: np.ndarray, b: np.ndarray, label: str,
@@ -986,12 +1012,26 @@ def main() -> int:
                         smi, "traverse5 itf minecraft_proc")
     b5 = bound("traverse5", scene, kern, *bounce1m,
                "traverse5 itf minecraft_proc bounce 1M")
+    phase_masked(kern, plain, *bounce1m, smi,
+                 "traverse5 itf minecraft_proc bounce", world_ties=True)
     del prim1m, bounce1m
-    launches5, _ = phase_headline(render_wavefront, scene, cam, smi,
-                                  "minecraft_proc --shared-instances",
-                                  traverse5, (traverse8, traverse1))
+    launches5, rays5 = phase_headline(render_wavefront, scene, cam, smi,
+                                      "minecraft_proc --shared-instances",
+                                      traverse5, (traverse8, traverse1))
     report["traverse5"] = dict(launches=launches5, max_abs_err=err5,
                                times=times["bounce"], bound=b5)
+
+    # ---- the megakernel on the two-level path (traverse5, masked) ----
+    _, mk_rays = phase_headline(
+        mk.render_megakernel, scene, cam, smi, "minecraft_proc "
+        "--shared-instances megakernel", traverse5, (traverse8, traverse1),
+        waves=-(-64 // per_wave))
+    check_tallies(mk_rays, rays5, "minecraft_proc megakernel vs wavefront")
+    if not (mk_rays == rays5).all():
+        raise AssertionError("minecraft_proc megakernel and wavefront "
+                             "headline tallies differ")
+    megakernel_bound(scene, cam, "minecraft_proc --shared-instances "
+                     "megakernel traverse5", "traverse5", stride=8)
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", **KERNELS[name],

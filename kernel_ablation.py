@@ -1,27 +1,33 @@
-"""Time the traverse8 and traverse1 kernels against variants of
-themselves on one CUDA card, in one process, in turns.
+"""Time the traverse8, traverse5 and traverse1 kernels against variants
+of themselves on one CUDA card, in one process, in turns.
 
     python3 kernel_ablation.py [--tree NAME=DIR ...] [--variants a,b,...]
 
 Each variant is the checkout's csrc/ with one text patch (VARIANTS):
-a design element of the kernels taken out (16-byte node and leaf
-loads, the reciprocal, the single-push path), or a candidate that did
-not pay (the stack in shared memory, a prefetch of the next node,
-float2 leaf loads, register caps, other block sizes). Each --tree NAME=DIR builds
-the csrc/ of another checkout of this repository (for example the
-commit before, unpacked with git archive) and times it as NAME,
-through the C interface it had before the kernels took scheduling
-scratch when its sources have no schedule.cuh.
+a design element of the kernels taken out (16-byte loads of nodes, of
+leaves or of both, the compaction of live lanes, the reciprocal, the
+single-push path), or a candidate (the stack in shared memory, a
+prefetch of the next node, float2 leaf loads, register caps, other
+block sizes, an L2 access-policy window over the first rows of
+traverse5's node table). Each --tree NAME=DIR builds the csrc/ of
+another checkout of this repository (for example the commit before,
+unpacked with git archive) and times it as NAME, each kernel through
+the C interface it had there: without scheduling scratch where its
+source does not include schedule.cuh.
 
 Every variant is built with the flags of ops/kernels.py into
 build/ablation/<variant>/ and must return the checkout's hits bit for
 bit. Timed on sponza_proc scale 2 (traverse8 on the SAH tree, traverse1
-on the Morton heap of leaf size 4): 1M primary and 1M first-bounce
-rays of the 1024x1024 frame, and the bounce rays tiled to a
-megakernel wave of 8,388,608 lanes with all lanes and with 18 % live.
+on the Morton heap of leaf size 4) and on minecraft_proc
+--shared-instances (traverse5 in itf mode): 1M primary and 1M
+first-bounce rays of the 1024x1024 frame, and the bounce rays tiled to
+a megakernel wave of 8,388,608 lanes with all lanes and with 18 % live;
+traverse5 in MT mode on the SAH tree of sponza_proc (its MT rows) at
+the 1M primary and bounce rays of traverse8.
 Each time is the mean of two runs of 10 launches, one in the order of
-the variants and one in the reverse order. Prints one line per
-measurement and a JSON object last.
+the variants and one in the reverse order; persisting L2 lines are
+reset after each. Prints one line per measurement and a JSON object
+last.
 """
 
 from __future__ import annotations
@@ -123,6 +129,103 @@ _PREFETCH = """    uint32_t leaves = entered & is_leaf;
 #endif
 """
 
+# 16-byte loads done as four 4-byte ones, on the card only
+_LD4S = """SRT_HD F4 ld4s(const float* p) {
+#ifdef __CUDA_ARCH__
+  return F4{__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};
+#else
+  return ld4(p);
+#endif
+}
+
+SRT_HD I4 ld4s(const int32_t* p) {
+#ifdef __CUDA_ARCH__
+  return I4{__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};
+#else
+  return ld4(p);
+#endif
+}
+
+"""
+_COMPONENT = "// Component j of v (j a compile-time constant after unrolling)."
+_MT_ROWS = "// The 8 slots of row `row` of mt"
+# persistent warps over every lane, each lane reading its own flag of
+# the mask (passed in place of the list of live lanes)
+_LIST_INDEX = "    const int64_t i = list == nullptr ? k : (int64_t)list[k];\n"
+_MASK_INDEX = """    const int64_t i = k;
+    if (list != nullptr && reinterpret_cast<const uint8_t*>(list)[i] == 0) {
+      io.t[i] = 0.0f;
+      io.tri[i] = -1;
+      io.u[i] = 0.0f;
+      io.v[i] = 0.0f;
+      continue;
+    }
+"""
+_COMPACT = """  if (active != nullptr) {
+    err = srt::compact_lanes((const uint8_t*)active, n_rays, (int32_t*)list,
+                             cnt, (float*)t_out, (int32_t*)tri_out,
+                             (float*)u_out, (float*)v_out, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+"""
+_COUNT = "const int64_t n = list == nullptr ? n_rays : (int64_t)counters[0];"
+_PASS_LIST = "active == nullptr ? nullptr : (const int32_t*)list"
+_NO_COMPACTION = [(f, old, new) for f in ("traverse8.cu", "traverse5.cu",
+                                          "traverse1.cu")
+                  for old, new in ((_COMPACT, ""),
+                                   (_COUNT, "const int64_t n = n_rays;"),
+                                   (_PASS_LIST, "(const int32_t*)active"))]
+# traverse5's launch with an L2 access-policy window over the first
+# min(cap, set-aside, table) bytes of its node table (the global tree's
+# top levels come first), persisting; the set-aside is the most the
+# card allows
+_L2_WINDOW = """cudaAccessPolicyWindow node_window(const void* nodes, int32_t ni) {
+  static size_t aside = 0;
+  if (aside == 0) {
+    int dev = 0, most = 0, window = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&most, cudaDevAttrMaxPersistingL2CacheSize, dev);
+    cudaDeviceGetAttribute(&window, cudaDevAttrMaxAccessPolicyWindowSize,
+                           dev);
+    aside = (size_t)(most < window ? most : window);
+    cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, aside);
+  }
+  size_t bytes = (size_t)ni * 48 * sizeof(float);
+  const size_t cap = (size_t){mb} << 20;
+  bytes = bytes < cap ? bytes : cap;
+  bytes = bytes < aside ? bytes : aside;
+  cudaAccessPolicyWindow w = {};
+  w.base_ptr = const_cast<void*>(nodes);
+  w.num_bytes = bytes;
+  w.hitRatio = 1.0f;
+  w.hitProp = cudaAccessPropertyPersisting;
+  w.missProp = cudaAccessPropertyStreaming;
+  return w;
+}
+
+template <class Leaf>
+cudaError_t launch("""
+_T5_LAUNCH = "  traverse5_kernel<Leaf><<<grid, kThreads, 0, s>>>("
+_T5_LAUNCH_EX = """  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeAccessPolicyWindow;
+  attr[0].val.accessPolicyWindow = node_window(nodes, ni);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, traverse5_kernel<Leaf>,"""
+
+
+def _l2_window(mb: int) -> list:
+    return [("traverse5.cu", "template <class Leaf>\ncudaError_t launch(",
+             _L2_WINDOW.replace("{mb}", str(mb))),
+            ("traverse5.cu", _T5_LAUNCH, _T5_LAUNCH_EX)]
+
+
+_ALL_CU = ("traverse8.cu", "traverse5.cu", "traverse1.cu")
+
 # variant -> [(file in csrc, text, replacement)]
 VARIANTS = {
     "checkout": [],
@@ -131,6 +234,22 @@ VARIANTS = {
          "  return F4{__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};"),
         ("walk_regs.cuh", _I4,
          "  return I4{__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};")],
+    "node_scalar_loads": [
+        ("walk_regs.cuh", "const F4 v = ld4(row + 4 * q);",
+         "const F4 v = ld4s(row + 4 * q);"),
+        ("walk_regs.cuh", "const I4 a = ld4(kids.ids", "const I4 a = ld4s(kids.ids"),
+        ("walk_regs.cuh", "const I4 b = ld4(kids.ids", "const I4 b = ld4s(kids.ids"),
+        ("walk_regs.cuh", _COMPONENT, _LD4S + _COMPONENT)],
+    "leaf5_scalar_loads": [
+        ("traverse5.cuh", "ld4(", "ld4s("),
+        ("traverse5.cuh", _MT_ROWS, _LD4S + _MT_ROWS)],
+    "leaf5_group_loop": [
+        ("traverse5.cuh", "  SRT_UNROLL\n  for (int g = 0; g < 8; g += 4",
+         "  _Pragma(\"unroll 1\")\n  for (int g = 0; g < 8; g += 4")],
+    "no_compaction": [("schedule.cuh", _LIST_INDEX, _MASK_INDEX)]
+    + _NO_COMPACTION,
+    "l2_window_8mb": _l2_window(8),
+    "l2_window_max": _l2_window(1 << 12),
     "shared_stack": [
         ("schedule.cuh", _RAYIO, _SHARED_STACK + _RAYIO),
         ("traverse8.cu", _STACK, _SHARED_DECL.format(s=16)),
@@ -146,20 +265,18 @@ VARIANTS = {
     "prefetch_next": [
         ("walk_regs.cuh", "    uint32_t leaves = entered & is_leaf;\n",
          _PREFETCH)],
-    "block_64": [
-        ("traverse8.cu", _THREADS, "constexpr int kThreads = 64;"),
-        ("traverse1.cu", _THREADS, "constexpr int kThreads = 64;")],
-    "block_256": [
-        ("traverse8.cu", _THREADS, "constexpr int kThreads = 256;"),
-        ("traverse1.cu", _THREADS, "constexpr int kThreads = 256;")],
-    "min_blocks_6": [
-        ("traverse8.cu", _BOUNDS, "__launch_bounds__(kThreads, 6)"),
-        ("traverse1.cu", _BOUNDS, "__launch_bounds__(kThreads, 6)")],
-    "min_blocks_8": [
-        ("traverse8.cu", _BOUNDS, "__launch_bounds__(kThreads, 8)"),
-        ("traverse1.cu", _BOUNDS, "__launch_bounds__(kThreads, 8)")],
+    "block_64": [(f, _THREADS, "constexpr int kThreads = 64;")
+                 for f in _ALL_CU],
+    "block_256": [(f, _THREADS, "constexpr int kThreads = 256;")
+                  for f in _ALL_CU],
+    "min_blocks_4": [(f, _BOUNDS, "__launch_bounds__(kThreads, 4)")
+                     for f in _ALL_CU],
+    "min_blocks_6": [(f, _BOUNDS, "__launch_bounds__(kThreads, 6)")
+                     for f in _ALL_CU],
+    "min_blocks_8": [(f, _BOUNDS, "__launch_bounds__(kThreads, 8)")
+                     for f in _ALL_CU],
 }
-KERNELS = ("traverse8", "traverse1")
+KERNELS = ("traverse8", "traverse5", "traverse1")
 
 
 def log(msg: str) -> None:
@@ -215,21 +332,23 @@ def build(variants: dict, trees: dict) -> dict:
 
 
 class Variant:
-    """One built library and a launch of its traverse8 / traverse1."""
+    """One built library and a launch of each of its kernels."""
 
     def __init__(self, name: str, lib_path: str):
         from sycl_ray_tracer_torch.ops import kernels
 
         self.name = name
         self.lib = ctypes.CDLL(lib_path)
-        # a library from before the scheduling scratch has no
-        # srt_traverse8 taking it; its csrc has no schedule.cuh
-        csrc = os.path.dirname(lib_path)
-        self.scratch = os.path.exists(os.path.join(csrc, "csrc",
-                                                   "schedule.cuh"))
-        tail = [kernels._I64] + ([kernels._P] * 3 if self.scratch
-                                 else [kernels._P])
+        # a kernel from before the scheduling scratch takes none; its
+        # source does not include schedule.cuh
+        csrc = os.path.join(os.path.dirname(lib_path), "csrc")
+        self.scratch = set()
         for k in KERNELS:
+            with open(os.path.join(csrc, f"{k}.cu")) as f:
+                if '#include "schedule.cuh"' in f.read():
+                    self.scratch.add(k)
+            tail = [kernels._I64] + ([kernels._P] * 3 if k in self.scratch
+                                     else [kernels._P])
             fn = getattr(self.lib, f"srt_{k}")
             fn.argtypes = kernels._TABLES[k] + [kernels._P] * 12 + tail
             fn.restype = ctypes.c_int
@@ -242,9 +361,10 @@ class Variant:
         out = [torch.empty((r,), dtype=dt, device=dev)
                for dt in (torch.float32, torch.int32, torch.float32,
                           torch.float32)]
-        args = [x if isinstance(x, int) else x.data_ptr() for x in tables]
+        args = [x if x is None or isinstance(x, int) else x.data_ptr()
+                for x in tables]
         extra = []
-        if self.scratch:
+        if name in self.scratch:
             lanes = (None if active is None else
                      torch.empty((r,), dtype=torch.int32, device=dev))
             counters = torch.zeros((2,), dtype=torch.int64, device=dev)
@@ -280,27 +400,48 @@ def main() -> int:
 
     cuda = torch.device("cuda")
     glb = resolve_scene_bytes("sponza_proc")
-    sah, cam, _ = cs.load(glb, 1024, 1024, cuda)
+    sah, cam, host = cs.load(glb, 1024, 1024, cuda)
     heap, _, hcam = load_pair(glb, 1024, 1024, leaf_size=4, device=cuda)
+    inst, icam, _ = cs.load(resolve_scene_bytes("minecraft_proc"), 1024,
+                            1024, cuda, shared_instances=True)
     cases = {}
     gen = torch.Generator(device="cpu").manual_seed(23)
     live18 = (torch.rand(cs.WAVE_LANES, generator=gen) < 0.18).to(cuda)
-    for k, scene, c in (("traverse8", sah, cam), ("traverse1", heap, hcam)):
-        tables = cs.kernel_tables(k, scene)
+    mt = cs.sah_mt_rows(host, cuda)
+    # (kernel, label, scene, camera, MT rows, with the waves)
+    for k, name, scene, c, rows, waves in (
+            ("traverse8", "traverse8", sah, cam, None, True),
+            ("traverse1", "traverse1", heap, hcam, None, True),
+            ("traverse5", "traverse5 itf", inst, icam, None, True),
+            ("traverse5", "traverse5 MT", sah, cam, mt, False)):
+        tables = cs.kernel_tables(k, scene, rows)
         prim, bounce = cs.make_rays(scene, c, 1024, 1024, 1 << 20)
+        cases[f"{name} primary 1M"] = (k, tables, *prim, None)
+        cases[f"{name} bounce 1M"] = (k, tables, *bounce, None)
+        if not waves:
+            continue
         tile = cs.WAVE_LANES // bounce[0].x.shape[0]
         wave = tuple(V3(*(x.repeat(tile) for x in v)) for v in bounce)
-        cases[f"{k} primary 1M"] = (k, tables, *prim, None)
-        cases[f"{k} bounce 1M"] = (k, tables, *bounce, None)
-        cases[f"{k} wave all live"] = (k, tables, *wave,
-                                       torch.ones_like(live18))
-        cases[f"{k} wave 18% live"] = (k, tables, *wave, live18)
+        cases[f"{name} wave all live"] = (k, tables, *wave,
+                                          torch.ones_like(live18))
+        cases[f"{name} wave 18% live"] = (k, tables, *wave, live18)
+
+    # persisting L2 lines (the l2_window variants) are reset after each
+    # variant's launches, so that they favour no other variant
+    libcuda = ctypes.CDLL("libcuda.so.1")
+
+    def reset_l2():
+        torch.cuda.synchronize()
+        err = libcuda.cuCtxResetPersistingL2Cache()
+        if err != 0:
+            raise RuntimeError(f"cuCtxResetPersistingL2Cache: error {err}")
 
     ref = variants[0]
     for label, (k, tables, o, d, act) in cases.items():
         want = ref.launch(k, tables, o, d, act)
         for v in variants[1:]:
             got = v.launch(k, tables, o, d, act)
+            reset_l2()
             if not all(torch.equal(a, b) for a, b in zip(want, got)):
                 raise AssertionError(f"{v.name} differs from {ref.name} on "
                                      f"{label}")
@@ -311,6 +452,7 @@ def main() -> int:
         for label, (k, tables, o, d, act) in cases.items():
             for v in order:
                 ms = cs.time_ms(lambda: v.launch(k, tables, o, d, act), 10)
+                reset_l2()
                 times[v.name].setdefault(label, []).append(ms)
     result = {}
     for v in variants:

@@ -1,5 +1,5 @@
-// How the traverse8 and traverse1 kernels feed rays to threads (device
-// only; the per-ray walk is walk_regs.cuh).
+// How the traverse8, traverse5 and traverse1 kernels feed rays to threads
+// (device only; the per-ray walk is walk_regs.cuh).
 //
 // - Persistent warps: the grid is as many blocks as fit on the card at
 //   once (occupancy x SMs). Each warp takes 32 consecutive entries of

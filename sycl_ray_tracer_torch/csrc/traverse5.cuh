@@ -1,4 +1,4 @@
-// Moller-Trumbore leaf test for the BVH8 walk (bvh8_walk.cuh), with an
+// Moller-Trumbore leaf tests for the BVH8 walk (walk_regs.cuh), with an
 // optional instance transform per leaf: the per-ray function of the
 // traverse5 kernel.
 //
@@ -12,8 +12,15 @@
 //             transform of leaf l's instance, M row-major (9) then t
 //             (3); the ray is tested as o' = M o + t, d' = M d. d' is
 //             not renormalized, so t stays valid in world space.
-// Without leaf_slot/leaf_xf (MT mode), leaf l tests its own slots
-// mt[8l .. 8l+7]. Either way the reported tri is l*8 + j.
+// In MT mode (MtLeaf) leaf l tests its own slots mt[8l .. 8l+7]; in itf
+// mode (InstancedMtLeaf) the slots of its shared leaf. Either way the
+// reported tri is l*8 + j.
+//
+// A leaf's 8 slots are 72 contiguous floats (288 bytes), read four
+// slots at a time as nine 16-byte loads with each component at a
+// compile-time index; a transform is three 16-byte loads. The wrappers
+// check that mt and leaf_xf start on 16-byte boundaries, and every row
+// offset is a multiple of 16 bytes.
 //
 // Every expression is summed in the order of the JAX package's kernel
 // (traverse_pallas5.py:270-318) and of ops/traverse5.py; built without
@@ -21,7 +28,7 @@
 
 #pragma once
 
-#include "bvh8_walk.cuh"
+#include "walk_regs.cuh"
 
 namespace srt {
 
@@ -56,48 +63,73 @@ SRT_HD void mt_slot(float v0x, float v0y, float v0z, float e1x, float e1y,
   }
 }
 
-SRT_HD void mt_leaf(const float* __restrict__ mt, int64_t slot_row,
-                    int64_t leaf, const Ray& r, float& tb, HitOut& h) {
-  const float* m = mt + slot_row * 8 * 9;
-  for (int s = 0; s < 8; s++, m += 9) {
-    mt_slot(m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8], r,
-            (int32_t)(leaf * 8 + s), tb, h);
+// The 8 slots of row `row` of mt (slots 8 row .. 8 row + 7) against the
+// ray, in slot order, reported as leaf * 8 + j.
+SRT_HD void mt_leaf(const float* __restrict__ mt, int64_t row, int64_t leaf,
+                    const Ray& r, float& tb, HitOut& h) {
+  const float* m = mt + row * 72;
+  SRT_UNROLL
+  for (int g = 0; g < 8; g += 4, m += 36) {
+    float c[36];
+    SRT_UNROLL
+    for (int q = 0; q < 9; q++) {
+      const F4 v = ld4(m + 4 * q);
+      c[4 * q] = v.x;
+      c[4 * q + 1] = v.y;
+      c[4 * q + 2] = v.z;
+      c[4 * q + 3] = v.w;
+    }
+    SRT_UNROLL
+    for (int s = 0; s < 4; s++) {
+      const float* e = c + 9 * s;
+      mt_slot(e[0], e[1], e[2], e[3], e[4], e[5], e[6], e[7], e[8], r,
+              (int32_t)(leaf * 8 + g + s), tb, h);
+    }
   }
 }
 
+// MT mode: leaf l tests its own row.
 struct MtLeaf {
   const float* mt;
-  const int32_t* leaf_slot;  // null in MT mode
-  const float* leaf_xf;      // null in MT mode
   SRT_HD void operator()(int64_t leaf, const Ray& r, float& tb,
                          HitOut& h) const {
-    if (leaf_slot == nullptr) {
-      mt_leaf(mt, leaf, leaf, r, tb, h);
-      return;
-    }
+    mt_leaf(mt, leaf, leaf, r, tb, h);
+  }
+};
+
+// itf mode: leaf l tests the row of its shared leaf with the ray mapped
+// into its instance's space.
+struct InstancedMtLeaf {
+  const float* mt;
+  const int32_t* leaf_slot;
+  const float* leaf_xf;
+  SRT_HD void operator()(int64_t leaf, const Ray& r, float& tb,
+                         HitOut& h) const {
+    // M = (a.x a.y a.z / a.w b.x b.y / b.z b.w c.x), t = (c.y c.z c.w)
     const float* im = leaf_xf + leaf * 12;
-    const Ray li{im[0] * r.ox + im[1] * r.oy + im[2] * r.oz + im[9],
-                 im[3] * r.ox + im[4] * r.oy + im[5] * r.oz + im[10],
-                 im[6] * r.ox + im[7] * r.oy + im[8] * r.oz + im[11],
-                 im[0] * r.dx + im[1] * r.dy + im[2] * r.dz,
-                 im[3] * r.dx + im[4] * r.dy + im[5] * r.dz,
-                 im[6] * r.dx + im[7] * r.dy + im[8] * r.dz};
+    const F4 a = ld4(im);
+    const F4 b = ld4(im + 4);
+    const F4 c = ld4(im + 8);
+    const Ray li{a.x * r.ox + a.y * r.oy + a.z * r.oz + c.y,
+                 a.w * r.ox + b.x * r.oy + b.y * r.oz + c.z,
+                 b.z * r.ox + b.w * r.oy + c.x * r.oz + c.w,
+                 a.x * r.dx + a.y * r.dy + a.z * r.dz,
+                 a.w * r.dx + b.x * r.dy + b.y * r.dz,
+                 b.z * r.dx + b.w * r.dy + c.x * r.dz};
     mt_leaf(mt, (int64_t)leaf_slot[leaf], leaf, li, tb, h);
   }
 };
 
+// The walk of traverse5 with leaf test `leaf` (MtLeaf or
+// InstancedMtLeaf).
+template <class Leaf, class Stack>
 SRT_HD HitOut trace5(const float* __restrict__ nodes,
                      const int32_t* __restrict__ child_ids,
-                     const float* __restrict__ mt,
-                     const int32_t* __restrict__ leaf_slot,
-                     const float* __restrict__ leaf_xf, int32_t ni,
-                     float ox, float oy, float oz,
-                     float dx, float dy, float dz,
-                     bool active, float t_init,
+                     const Leaf& leaf, int32_t ni, const Ray& r,
+                     bool active, float t_init, Stack& st,
                      WalkCounts* counts = nullptr) {
-  const Ray r{ox, oy, oz, dx, dy, dz};
-  return walk(nodes, TableChildren{child_ids}, ni, r, active, t_init,
-              MtLeaf{mt, leaf_slot, leaf_xf}, counts);
+  return walk_regs(nodes, TableChildren{child_ids}, ni, r, active, t_init,
+                   leaf, st, counts);
 }
 
 }  // namespace srt

@@ -42,6 +42,30 @@ extern "C" void srt_traverse8_host(const float* nodes,
   }
 }
 
+template <class Leaf>
+static void traverse5_host(const float* nodes, const int32_t* child_ids,
+                           const Leaf& leaf, int32_t ni, const float* ox,
+                           const float* oy, const float* oz,
+                           const float* dx, const float* dy,
+                           const float* dz, const uint8_t* active,
+                           const float* t_init, float* t_out,
+                           int32_t* tri_out, float* u_out, float* v_out,
+                           int64_t n_rays, srt::WalkCounts* wc) {
+  srt::ArrayStack st;
+  for (int64_t i = 0; i < n_rays; i++) {
+    const bool act = active == nullptr || active[i] != 0;
+    const float t0 = t_init == nullptr ? srt::kBig : t_init[i];
+    const srt::HitOut h = srt::trace5(
+        nodes, child_ids, leaf, ni,
+        srt::Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]}, act, t0, st,
+        wc);
+    t_out[i] = h.t;
+    tri_out[i] = h.tri;
+    u_out[i] = h.u;
+    v_out[i] = h.v;
+  }
+}
+
 // `leaf_slot` and `leaf_xf` are both null (MT mode) or both set (itf).
 extern "C" void srt_traverse5_host(const float* nodes,
                                    const int32_t* child_ids,
@@ -57,16 +81,15 @@ extern "C" void srt_traverse5_host(const float* nodes,
                                    float* v_out, int64_t n_rays,
                                    int64_t* counts) {
   srt::WalkCounts wc{0, 0};
-  for (int64_t i = 0; i < n_rays; i++) {
-    const bool act = active == nullptr || active[i] != 0;
-    const float t0 = t_init == nullptr ? srt::kBig : t_init[i];
-    const srt::HitOut h = srt::trace5(nodes, child_ids, mt, leaf_slot,
-                                      leaf_xf, ni, ox[i], oy[i], oz[i],
-                                      dx[i], dy[i], dz[i], act, t0, &wc);
-    t_out[i] = h.t;
-    tri_out[i] = h.tri;
-    u_out[i] = h.u;
-    v_out[i] = h.v;
+  if (leaf_slot == nullptr) {
+    traverse5_host(nodes, child_ids, srt::MtLeaf{mt}, ni, ox, oy, oz, dx,
+                   dy, dz, active, t_init, t_out, tri_out, u_out, v_out,
+                   n_rays, &wc);
+  } else {
+    traverse5_host(nodes, child_ids,
+                   srt::InstancedMtLeaf{mt, leaf_slot, leaf_xf}, ni, ox, oy,
+                   oz, dx, dy, dz, active, t_init, t_out, tri_out, u_out,
+                   v_out, n_rays, &wc);
   }
   if (counts != nullptr) {
     counts[0] += wc.boxes;

@@ -1,18 +1,20 @@
 // Per-ray closest-hit walk of a BVH8 whose per-node state lives in
-// registers: the walk of the traverse8 and traverse1 kernels (and of
-// their host builds in walk_host.cpp). It computes what `walk` in
-// bvh8_walk.cuh computes, in the same order for each ray:
-//   - pop a node; skip it unless its entry distance is below t_best;
-//   - slab-test its non-empty child slots j = 0..7, each against the
-//     t_best of that moment;
-//   - test a leaf as soon as its box is entered;
-//   - push the entered internal children nearest first: the nearest
+// registers: the walk of the traverse8, traverse5 and traverse1 kernels
+// (and of their host builds in walk_host.cpp), generic over where the
+// child ids come from (bvh8_walk.cuh) and over the leaf test. For each
+// ray it
+//   - pops a node and skips it unless its entry distance is below
+//     t_best (the test made when it was pushed, against the t_best of
+//     now);
+//   - slab-tests the node's non-empty child slots j = 0..7 in slot
+//     order, each against the t_best of that moment;
+//   - tests a leaf as soon as its box is entered;
+//   - pushes the entered internal children nearest first: the nearest
 //     ends on top, and of two at the same entry distance the higher
 //     slot ends on top.
-// So its hits equal `walk`'s bit for bit, tie ids included, and its
-// counts of child boxes and leaves are the same.
-//
-// What differs is how the card carries it out:
+// This order is what the tests pin (the child boxes and leaves each
+// walk tests on fixed rays), so the hits, tie ids included, do not
+// depend on how the card carries it out:
 //   - the node's 8 child boxes are read as 12 16-byte loads and its 8
 //     child ids as 2 (ld4: the wrappers check that every table is
 //     16-byte aligned), and the slab distances of all 8 children are
@@ -23,8 +25,7 @@
 //     are tested again (below); lanes of a warp whose leaves sit in
 //     different slots run their leaf tests together;
 //   - the push order is computed from an 8-bit mask with compile-time
-//     indices (push_near_first) instead of an insertion sort through a
-//     runtime-indexed buffer;
+//     indices (push_near_first), with no runtime-indexed buffer;
 //   - the stack is a template parameter; both builds pass ArrayStack,
 //     a plain array, which on the card lives in local memory (cached in
 //     L1: a stack in shared memory measured slower, since it takes L1
@@ -105,9 +106,9 @@ SRT_HD void child_row(const HeapChildren& kids, int32_t nd, int32_t id[8]) {
 }
 
 // Slab test of the 8 child boxes of one node row (bvh8_walk.cuh
-// layout), with the expressions of `walk`: tmin[j] is child j's entry
-// distance, and bit j of the result says tmax >= max(tmin, TNEAR). A
-// child is entered when its bit is set and tmin[j] < t_best.
+// layout), with the expressions of ops/walk.py: tmin[j] is child j's
+// entry distance, and bit j of the result says tmax >= max(tmin,
+// TNEAR). A child is entered when its bit is set and tmin[j] < t_best.
 SRT_HD uint32_t slab8(const float* __restrict__ row, const Ray& r,
                       float ix, float iy, float iz, float tmin[8]) {
   float b[48];
@@ -160,9 +161,10 @@ SRT_HD float pick(const float v[8], int j) {
 }
 
 // Pushes the children of mask m farthest first, so that the nearest
-// ends on top and, at equal entry distance, the higher slot: the order
-// the insertion sort of `walk` leaves. Child j goes to sp + rank, where
-// rank counts the children pushed below it. Returns the new sp.
+// ends on top and, at equal entry distance, the higher slot (the order
+// a stable insertion sort by entry distance, farthest first, leaves).
+// Child j goes to sp + rank, where rank counts the children pushed
+// below it. Returns the new sp.
 template <class Stack>
 SRT_HD int push_near_first(Stack& st, int sp, uint32_t m,
                            const int32_t id[8], const float tmin[8]) {
@@ -202,8 +204,10 @@ struct ArrayStack {
   }
 };
 
-// `kids` gives the child ids (TableChildren or HeapChildren), `leaf`
-// the leaf test as in `walk`, `st` the stack (put/get of entry k).
+// `kids` gives the child ids (TableChildren or HeapChildren); `leaf`
+// (leaf_row, ray, t_best, hit) tests the slots of one leaf and, on a
+// strictly closer hit, lowers t_best and records the hit; `st` is the
+// stack (put/get of entry k).
 template <class Children, class Leaf, class Stack>
 SRT_HD HitOut walk_regs(const float* __restrict__ nodes,
                         const Children& kids, int32_t ni, const Ray& r,

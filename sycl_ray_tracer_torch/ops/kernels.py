@@ -34,7 +34,7 @@ CUDA_SOURCES = ("traverse8.cu", "traverse5.cu", "traverse1.cu")
 # kernels whose C entry takes scheduling scratch after n_rays: the list
 # of live lanes (int32 [R], with an active mask) and two zeroed 64-bit
 # counters (csrc/schedule.cuh)
-SCHEDULED = ("traverse8", "traverse1")
+SCHEDULED = ("traverse8", "traverse5", "traverse1")
 HOST_SOURCE = "walk_host.cpp"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math (dead slots need IEEE inf/NaN). FMA contraction is

@@ -19,10 +19,11 @@ Either way the reported tri is the slot id l*8 + j of the tree's own
 leaves; the caller composes it (bvh_remap).
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/traverse5.cu, one thread per ray, built with nvcc for sm_90a at
-first use by ops/kernels.py); on a CPU tensor it runs
-`traverse5_plain`, the same function in plain torch. There is no
-fallback between the two.
+(csrc/traverse5.cu: persistent warps over the rays, or over the live
+lanes of `active`; built with nvcc for sm_90a at first use by
+ops/kernels.py); the tables must start on 16-byte boundaries. On a CPU
+tensor it runs `traverse5_plain`, the same function in plain torch.
+There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -68,6 +69,10 @@ def traverse5(nodes: torch.Tensor, child_ids: torch.Tensor,
         kernels.check("leaf_slot", leaf_slot, torch.int32, (lg,), dev)
         kernels.check("leaf_xf", leaf_xf, torch.float32, (lg, 12), dev)
     kernels.check_rays(o, d, active, t_init, dev)
+    for name, t in (("nodes", nodes), ("child_ids", child_ids), ("mt", mt),
+                    ("leaf_xf", leaf_xf)):
+        if t is not None:
+            kernels.check_aligned(name, t)
     hit = kernels.launch("traverse5",
                          [nodes, child_ids, mt, leaf_slot, leaf_xf, ni],
                          o, d, active, t_init, dev)

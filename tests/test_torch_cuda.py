@@ -257,64 +257,110 @@ def test_megakernel_heap_cuda_matches_cpu(cuda):
     assert float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2))) < 4e-3
 
 
-_SPONZA = {}
+_CASES = {}
 
 
-def _sponza_kernel(name, dev):
-    """(kernel, plain, host tables, kernel name) of traverse8 (SAH tree)
-    or traverse1 (Morton heap, K = 4) on sponza scale 1, and its host."""
-    if name not in _SPONZA:
-        host = load_glb(tproc.sponza_like_glb(scale=1))
+def _kernel_case(name, dev):
+    """(camera position, points spanning the scene, kernel tables, host
+    tables, kernel, plain, keyword tables) of one kernel: traverse8 (SAH
+    tree) or traverse1 (Morton heap, K = 4) on sponza scale 1,
+    traverse5-mt on the MT rows of the same SAH tree, traverse5-itf on
+    the instanced fixture (r = 200)."""
+    if name not in _CASES:
+        kw = {}
+        if name == "traverse5-itf":
+            ih = load_glb_instanced(tfix.instanced_scene_glb(200))
+            sc = build_instanced_device_scene(ih, device=dev)
+            cam, pts = ih.camera_position, ih.inst_mat[:, :3, 3]
+        else:
+            host = load_glb(tproc.sponza_like_glb(scale=1))
+            cam, pts = host.camera_position, host.tri_v.reshape(-1, 3)
         if name == "traverse8":
             sc = build_device_scene(host, device=dev)
             tabs = [sc.bvh_nodes, sc.bvh_child_ids, sc.bvh_woop, sc.sah_ni]
             kern, plain = t8.traverse8, t8.traverse8_plain
             ktabs = tabs
-        else:
+        elif name == "traverse1":
             sc = build_device_scene(host, leaf_size=4, device=dev)
             tabs = [sc.bvh_children, sc.bvh_leaves, sc.bvh_ni, 4,
                     sc.bvh_leaves.shape[0]]
             kern, plain = t1.traverse1, t1.traverse1_plain
             ktabs = tabs[:4]
-        _SPONZA[name] = (host, ktabs, tabs, kern, plain)
-    return _SPONZA[name]
+        else:
+            if name == "traverse5-mt":
+                (nodes, ids, mt, ni, kw), _ = _t5_tables("mt", dev)
+            else:
+                nodes, ids, mt, ni = (sc.bvh_nodes, sc.bvh_child_ids,
+                                      sc.bvh_mt, sc.sah_ni)
+                kw = dict(leaf_slot=sc.inst_leaf_slot, leaf_xf=sc.inst_xf)
+            ktabs = [nodes, ids, mt, ni]
+            tabs = [nodes, ids, mt, kw.get("leaf_slot"), kw.get("leaf_xf"),
+                    ni]
+            kern, plain = t5.traverse5, t5.traverse5_plain
+        _CASES[name] = (cam, pts, ktabs, tabs, kern, plain, kw)
+    return _CASES[name]
+
+
+def _case_rays(cam, pts, r, seed, dev):
+    """Half the rays from the camera, half from random points in the
+    box of `pts`; random unnormalized directions."""
+    rs = np.random.RandomState(seed)
+    o = np.broadcast_to(cam.astype(np.float32), (r, 3)).copy()
+    o[r // 2:] = rs.uniform(pts.min(0), pts.max(0), (r - r // 2, 3))
+    d = rs.randn(r, 3).astype(np.float32)
+    t = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(
+        dev) for i in range(3)))
+    return t(o), t(d)
 
 
 def _hold(name, dev, r, active=None, seed=15):
     """The kernel on r rays (and a mask) against plain (ids equal outside
     1e-6-relative t ties, t, u, v equal bit for bit where they agree)
-    and against its host build (equal bit for bit, ties included)."""
-    host, ktabs, tabs, kern, plain = _sponza_kernel(name, dev)
-    o, d = _rays(host, r, seed, dev)
+    and against its host build (equal bit for bit, ties included). In
+    itf mode two hits also tie when their points on the ray lie within
+    1e-6 of the coordinates' scale (|o| + t |d|): an instance's node box,
+    rounded to f32, can prune the closer of two such hits once the walk
+    has found the other (chip_smoke.py:compare_hits)."""
+    cam, pts, ktabs, tabs, kern, plain, kw = _kernel_case(name, dev)
+    o, d = _case_rays(cam, pts, r, seed, dev)
     mask = {} if active is None else dict(active=active)
     before = kern.launches
-    k = kern(*ktabs, o, d, **mask)
+    k = kern(*ktabs, o, d, **kw, **mask)
     assert kern.launches == before + 1
-    p = plain(*ktabs, o, d, **mask)
+    p = plain(*ktabs, o, d, **kw, **mask)
     torch.cuda.synchronize()
     assert torch.equal(k.tri >= 0, p.tri >= 0)
     tie = (k.t - p.t).abs() <= 1e-6 * p.t.abs()
+    if name == "traverse5-itf":
+        dlen = torch.stack(list(d), 1).norm(dim=1)
+        scale = (torch.stack(list(o), 1).abs().amax(1)
+                 + torch.where(p.tri >= 0, p.t, 0.0) * dlen)
+        tie |= (k.t - p.t).abs() * dlen <= 1e-6 * scale
     same = k.tri == p.tri
     assert not bool((~same & ~tie).any())
     for a, b in ((k.t, p.t), (k.u, p.u), (k.v, p.v)):
         assert torch.equal(a[same], b[same])
     cpu = lambda v: V3(*(c.cpu() for c in v))
     h = kernels.run_host(
-        name, [x.cpu() if isinstance(x, torch.Tensor) else x for x in tabs],
+        name.split("-")[0],
+        [x.cpu() if isinstance(x, torch.Tensor) else x for x in tabs],
         cpu(o), cpu(d), None if active is None else active.cpu())
     for a, b in zip(h, k):
         assert torch.equal(a, b.cpu())
     return k
 
 
-@pytest.mark.parametrize("name", ["traverse8", "traverse1"])
+_KERNELS = ["traverse8", "traverse1", "traverse5-mt", "traverse5-itf"]
+
+
+@pytest.mark.parametrize("name", _KERNELS)
 @pytest.mark.parametrize("r", [0, 1, 31, 33, 1 << 20])
 def test_kernel_matches_plain_and_host_at_ray_counts(cuda, name, r):
     k = _hold(name, cuda, r)
     assert k.t.shape == (r,)
 
 
-@pytest.mark.parametrize("name", ["traverse8", "traverse1"])
+@pytest.mark.parametrize("name", _KERNELS)
 @pytest.mark.parametrize("mask", ["none", "sparse", "last_of_warp"])
 def test_kernel_matches_plain_and_host_under_masks(cuda, name, mask):
     """No lane active, 5 % at random, and only the last lane of each
@@ -332,19 +378,28 @@ def test_kernel_matches_plain_and_host_under_masks(cuda, name, mask):
     assert bool((k.u[ina] == 0).all()) and bool((k.v[ina] == 0).all())
 
 
-@pytest.mark.parametrize("name", ["traverse8", "traverse1"])
+@pytest.mark.parametrize("name", _KERNELS)
 def test_wrapper_refuses_misaligned_tables(cuda, name):
     """A table view that starts 4 bytes past a 16-byte boundary is
-    refused: the kernels read tables with 16-byte loads."""
-    host, ktabs, _, kern, _ = _sponza_kernel(name, cuda)
-    o, d = _rays(host, 64, 1, cuda)
-    for i, t in enumerate(ktabs[:-1]):
-        if not isinstance(t, torch.Tensor):
-            continue
+    refused: the kernels read tables with 16-byte loads (traverse5's
+    leaf_slot, read one value at a time, is not checked)."""
+    cam, pts, ktabs, _, kern, _, kw = _kernel_case(name, cuda)
+    o, d = _case_rays(cam, pts, 64, 1, cuda)
+
+    def misaligned(t):
         buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
         view = buf[1:].view(t.shape)
         view.copy_(t)
+        return view
+
+    for i, t in enumerate(ktabs):
+        if not isinstance(t, torch.Tensor):
+            continue
         bad = list(ktabs)
-        bad[i] = view
+        bad[i] = misaligned(t)
         with pytest.raises(ValueError, match="16-byte"):
-            kern(*bad, o, d)
+            kern(*bad, o, d, **kw)
+    if "leaf_xf" in kw:
+        with pytest.raises(ValueError, match="16-byte"):
+            kern(*ktabs, o, d, leaf_slot=kw["leaf_slot"],
+                 leaf_xf=misaligned(kw["leaf_xf"]))

@@ -1,9 +1,9 @@
 """Port intersectors (ops/traverse8.py, ops/traverse5.py): the plain
 torch versions against the JAX package's Woop reference and CPU
-traversal, and the kernels' own per-ray walks (csrc/walk_regs.cuh and
-csrc/bvh8_walk.cuh with the leaf tests of traverse8.cuh and
-traverse5.cuh, built here with g++) against the plain versions, with
-traverse8's walk pinned to its work on fixed rays."""
+traversal, and the kernels' own per-ray walk (csrc/walk_regs.cuh with
+the leaf tests of traverse8.cuh and traverse5.cuh, built here with g++)
+against the plain versions, with each kernel's walk pinned to its work
+on fixed rays."""
 
 import shutil
 
@@ -221,43 +221,69 @@ def test_kernel_walk_pinned_counts(which):
     assert counts.tolist() == _PINNED8[which]
 
 
-@pytest.mark.parametrize("mask", ["none", "one", "sparse", "all"])
-def test_kernel_walk_matches_plain_under_masks(mask):
-    """The host build of traverse8's walk against traverse8_plain on the
-    pinned primary and bounce rays under each mask: equal bit for bit
-    where the ids agree, ids equal outside equal-t ties."""
+def _walk_case(kernel):
+    """(host-build name, its tables, pinned rays, plain(o, d, **kw)) of
+    one kernel: "traverse8" on sponza scale 1, "traverse5-mt" on the
+    baked SAH tree of the same scene (the same rays), "traverse5-itf" on
+    the instanced fixture with the pinned rays of its own camera."""
+    if kernel == "traverse8":
+        tables, rays = _frame()
+        return ("traverse8", tables, rays,
+                lambda o, d, **kw: t8.traverse8_plain(*tables, o, d, **kw))
+    mode = kernel.split("-")[1]
+    tables, _ = _mt_tables(mode)
+    nodes, ids, mt, slot, xf, ni = tables
+    rays = _frame()[1] if mode == "mt" else _itf_rays()
+    return ("traverse5", tables, rays,
+            lambda o, d, **kw: t5.traverse5_plain(
+                nodes, ids, mt, ni, o, d, leaf_slot=slot, leaf_xf=xf, **kw))
+
+
+_MASK_CASES = [(k, m) for k in ("traverse8", "traverse5-mt", "traverse5-itf")
+               for m in ("none", "one", "sparse", "all")]
+
+
+@pytest.mark.parametrize(
+    "kernel,mask", _MASK_CASES,
+    ids=[m if k == "traverse8" else f"{k}-{m}" for k, m in _MASK_CASES])
+def test_kernel_walk_matches_plain_under_masks(kernel, mask):
+    """The host build of a kernel's walk against its plain version on
+    the pinned primary and bounce rays under each mask: equal bit for
+    bit where the ids agree, ids equal outside equal-t ties."""
     _host_lib()
-    tables, rays = _frame()
+    name, tables, rays, plain_fn = _walk_case(kernel)
     for q in rays.values():
         o, d = V3(*q[:3]), V3(*q[3:])
         active = lane_mask(mask, q.shape[1], 31)
-        host = kernels.run_host("traverse8", tables, o, d, active=active)
-        plain = t8.traverse8_plain(*tables, o, d, active=active)
+        host = kernels.run_host(name, tables, o, d, active=active)
+        plain = plain_fn(o, d, active=active)
         host_vs_plain(host, plain)
         assert int((host.tri >= 0).sum()) <= int(active.sum())
         assert (host.t[~active] == 0).all()
 
 
-def test_kernel_walk_t_init_chaining():
+@pytest.mark.parametrize("kernel",
+                         ["traverse8", "traverse5-mt", "traverse5-itf"])
+def test_kernel_walk_t_init_chaining(kernel):
     """t_init on the host build as on plain: a seeded mix of incumbents
     below and above the closest hit gives equal results, and chaining
     on the found t finds nothing closer."""
     _host_lib()
-    tables, rays = _frame()
+    name, tables, rays, plain_fn = _walk_case(kernel)
     q = rays["bounce"]
     o, d = V3(*q[:3]), V3(*q[3:])
-    first = t8.traverse8_plain(*tables, o, d)
+    first = plain_fn(o, d)
     scale = torch.from_numpy(
         np.random.RandomState(32).uniform(0.5, 1.5, q.shape[1])
         .astype(np.float32))
     t_init = torch.where(first.tri >= 0, first.t * scale,
                          torch.full_like(first.t, 50.0))
-    host = kernels.run_host("traverse8", tables, o, d, t_init=t_init)
-    plain = t8.traverse8_plain(*tables, o, d, t_init=t_init)
+    host = kernels.run_host(name, tables, o, d, t_init=t_init)
+    plain = plain_fn(o, d, t_init=t_init)
     host_vs_plain(host, plain)
     assert ((host.tri < 0) & (host.t != t_init)).sum() == 0
     assert 0 < int((host.tri >= 0).sum()) < int((first.tri >= 0).sum())
-    again = kernels.run_host("traverse8", tables, o, d, t_init=host.t)
+    again = kernels.run_host(name, tables, o, d, t_init=host.t)
     assert (again.tri == -1).all() and torch.equal(again.t, host.t)
 
 
@@ -270,21 +296,65 @@ def test_wrapper_rejects_non_cpu_non_cuda_and_checks_stack():
         t8.traverse8(*meta, scene.sah_ni, tv3(o), tv3(d))
 
 
+_T5 = {}
+
+
+def _itf_scene():
+    """(instanced host, its CPU DeviceScene) of the fixture (r = 30)."""
+    if "itf" not in _T5:
+        ih = load_glb_instanced(tfix.instanced_scene_glb(30))
+        _T5["itf"] = ih, build_instanced_device_scene(ih, device="cpu")
+    return _T5["itf"]
+
+
+def _itf_rays():
+    """The pinned rays (tests/torch_common.py) of the instanced fixture
+    at a 64x32 camera."""
+    if "itf_rays" not in _T5:
+        ih, ts = _itf_scene()
+        cam = make_camera(64, 32, ih.camera_position, ih.camera_direction,
+                          ih.camera_focal_length, device="cpu")
+        _T5["itf_rays"] = pinned_rays(ts, cam)
+    return _T5["itf_rays"]
+
+
 def _mt_tables(name):
-    """(tables of traverse5 as a list, host scene, itf keyword args):
-    MT mode on the baked SAH tree of sponza scale 1 (rows from
+    """(tables of traverse5 as a list, points spanning the scene): MT
+    mode on the baked SAH tree of sponza scale 1 (rows from
     sah.leaf_rows), itf mode on the port's instanced fixture tables."""
     if name == "mt":
         host, scene, _ = _pair("sponza")
-        order = tsah.build_sah(host.tri_v, 8).order
-        mt = torch.from_numpy(tsah.slot_rows(
-            tsah.leaf_rows(host.tri_v, order, 8), 8))
-        return [scene.bvh_nodes, scene.bvh_child_ids, mt, None, None,
+        if "mt" not in _T5:
+            order = tsah.build_sah(host.tri_v, 8).order
+            _T5["mt"] = torch.from_numpy(tsah.slot_rows(
+                tsah.leaf_rows(host.tri_v, order, 8), 8))
+        return [scene.bvh_nodes, scene.bvh_child_ids, _T5["mt"], None, None,
                 scene.sah_ni], host.tri_v.reshape(-1, 3)
-    ih = load_glb_instanced(tfix.instanced_scene_glb(30))
-    ts = build_instanced_device_scene(ih, device="cpu")
+    ih, ts = _itf_scene()
     return [ts.bvh_nodes, ts.bvh_child_ids, ts.bvh_mt, ts.inst_leaf_slot,
             ts.inst_xf, ts.sah_ni], ih.inst_mat[:, :3, 3]
+
+
+# Work of traverse5's walk on pinned rays (tests/torch_common.py:
+# pinned_rays): [child boxes slab-tested, leaves tested] in MT mode on
+# the baked SAH tree of sponza_proc scale 1 (the rays of _PINNED8) and in
+# itf mode on the instanced fixture (r = 30), counted by the host build
+# of the walk as it stood before the kernel's redesign, which keeps the
+# order of the walk.
+_PINNED5 = {("mt", "primary"): [69021, 2741],
+            ("mt", "bounce"): [61365, 2221],
+            ("itf", "primary"): [40295, 2505],
+            ("itf", "bounce"): [46064, 3374]}
+
+
+@pytest.mark.parametrize("mode,which", list(_PINNED5))
+def test_traverse5_walk_pinned_counts(mode, which):
+    _host_lib()
+    name, tables, rays, _ = _walk_case(f"traverse5-{mode}")
+    q = rays[which]
+    counts = torch.zeros(2, dtype=torch.int64)
+    kernels.run_host(name, tables, V3(*q[:3]), V3(*q[3:]), counts=counts)
+    assert counts.tolist() == _PINNED5[(mode, which)]
 
 
 @pytest.mark.parametrize("mode", ["mt", "itf"])
