@@ -77,7 +77,30 @@ Phases (any failure raises and exits non-zero):
    as 8, with traverse5 launched masked once per bounce of each wave and
    tallies equal to those of 15; its bound as in 8, from the host walk
    on a sample, every 8th live lane of each launch, whose hits must
-   equal the kernel's there, with the counted work scaled by 8.
+   equal the kernel's there, with the counted work scaled by 8;
+4c. (after 4b) the binary-LBVH cross-check intersector (intersector=
+   "lbvh", ops/traverse.py, plain torch) against traverse8 on the 1M
+   bounce rays of 4, ids in Morton slots on both sides, with the rules
+   of 10; the walk's seconds and steps;
+17. the deep tree: sponza_like_glb(scale=3) (SAH depth 10, more than a
+   64-entry stack holds): traverse8 against plain on 65,536 primary and
+   65,536 first-bounce rays with the rules of 3, and a wavefront frame
+   at 256x256, 4 spp, depth 6, with one traverse8 launch per bounce,
+   finite and not black;
+18. the port's own Sponza-scale gate (tests/test_render.py:149-183):
+   sponza_like_glb(scale=1), 64x48, 64 spp, depth 6, wavefront frames
+   (timed) on the SAH tree (traverse8), the Morton heap of leaf size 4
+   (traverse1) and the LBVH; the LBVH against each kernel's frame (each
+   walk breaks bit-equal-t ties at coplanar faces its own way):
+   untrimmed RMSE < 4e-3, flips under 0.5 %, p99 of the per-pixel max
+   |diff| < 0.02, total rays within 1 %, image std > 0.05;
+19. the oracle gate: the port's numpy oracle (models/oracle.py, on the
+   host) against the card's wavefront and megakernel renders of the
+   cube (96x96, 4 spp, depth 8), the dielectric (64x64, 16 spp, depth
+   12, with and without russian roulette) and the textured quad (64x64,
+   4 spp, depth 4), each with the flip-tolerant gate, and the
+   megakernel's tallies against the wavefront's.
+Phases 4c and 17-19 print their seconds.
 
 Every headline frame also reports its kernel's time within the frame,
 from CUDA events around each launch.
@@ -750,25 +773,43 @@ def phase_mt_heap(heap, sah, host, smi: str):
     return err, times["bounce"], b1
 
 
+def disagreement(a, b, label: str):
+    """Two intersectors' hits on the same rays, both in Morton slots, MT
+    against Woop: agreement >= 0.999 and p99 of relative |dt| < 5e-4
+    where both hit. Where Woop and MT place a ray on either side of a
+    shared edge, the ids differ beyond the t window too; such rays
+    count as disagreeing, with the hit/miss differences."""
+    ta, tb = a.t.cpu().numpy(), b.t.cpu().numpy()
+    tri_a, tri_b = a.tri.cpu().numpy(), b.tri.cpu().numpy()
+    ha, hb = tri_a >= 0, tri_b >= 0
+    both = ha & hb
+    rel = np.abs(ta.astype(np.float64) - tb) / np.abs(tb)
+    p99 = float(np.percentile(rel[both], 99))
+    flips = (ha != hb) | (both & (tri_a != tri_b) & (rel > 5e-4))
+    agree = 1.0 - float(flips.mean())
+    log(f"[cross] {label}: {both.mean():.4f} hit both, hit/miss differ on "
+        f"{int((ha != hb).sum())}, ids beyond 5e-4 of t on "
+        f"{int(flips.sum() - (ha != hb).sum())}, agreement {agree:.6f}, p99 "
+        f"relative |dt| {p99:.3g}")
+    if agree < 0.999 or p99 >= 5e-4:
+        raise AssertionError(f"{label}: the intersectors disagree")
+
+
 def heap_vs_sah(heap, sah, mt5, o, d, label: str) -> None:
     """traverse1 (Morton slots) against the SAH tree of the same host on
     the same rays, both in canonical Morton slots (bvh_remap):
     - against traverse5 in MT mode (mt5), the same Moller-Trumbore
       arithmetic on the same rows: hit/miss equal, ids equal outside
       1e-6-relative t ties, t, u, v equal bit for bit where they agree;
-    - against traverse8 (Woop): hit/miss agreement >= 0.999 and p99 of
-      relative |dt| < 5e-4. Where Woop and MT place a ray on either side
-      of a shared edge, the ids differ beyond the t window too; such
-      rays are counted with the hit/miss differences."""
+    - against traverse8 (Woop): the rules of `disagreement`."""
     from sycl_ray_tracer_torch.models.trace import intersect_scene
 
     a = intersect_scene(heap, o, d)
     c = mt5(o, d)
     tri_c = torch.where(c.tri >= 0, sah.bvh_remap[c.tri.clamp(min=0).long()],
                         -1).cpu().numpy()
-    b = intersect_scene(sah, o, d)
-    ta, tb, tc = (h.t.cpu().numpy() for h in (a, b, c))
-    tri_a, tri_b = a.tri.cpu().numpy(), b.tri.cpu().numpy()
+    ta, tc = a.t.cpu().numpy(), c.t.cpu().numpy()
+    tri_a = a.tri.cpu().numpy()
 
     hit = tri_a >= 0
     tie = np.abs(ta - tc) <= 1e-6 * np.abs(tc)
@@ -779,21 +820,10 @@ def heap_vs_sah(heap, sah, mt5, o, d, label: str) -> None:
             for x, y in ((a.t, c.t), (a.u, c.u), (a.v, c.v))):
         raise AssertionError(f"traverse1 vs traverse5 MT {label}: the heap "
                              "and the SAH tree disagree")
-
-    hb = tri_b >= 0
-    both = hit & hb
-    rel = np.abs(ta.astype(np.float64) - tb) / np.abs(tb)
-    p99 = float(np.percentile(rel[both], 99))
-    flips = (hit != hb) | (both & (tri_a != tri_b) & (rel > 5e-4))
-    agree = 1.0 - float(flips.mean())
-    log(f"[kernel] traverse1 K=4 vs SAH sponza {label}: vs traverse5 MT "
-        f"equal outside {mt_ties} tie-broken ids; vs traverse8 hit/miss "
-        f"differ on {int((hit != hb).sum())}, ids beyond 5e-4 of t on "
-        f"{int(flips.sum() - (hit != hb).sum())}, agreement {agree:.6f}, "
-        f"p99 relative |dt| {p99:.3g}")
-    if agree < 0.999 or p99 >= 5e-4:
-        raise AssertionError(f"traverse1 vs traverse8 {label}: MT and Woop "
-                             "disagree")
+    log(f"[kernel] traverse1 K=4 vs traverse5 MT sponza {label}: equal "
+        f"outside {mt_ties} tie-broken ids")
+    disagreement(a, intersect_scene(sah, o, d),
+                 f"traverse1 K=4 (MT) vs traverse8 (Woop) sponza {label}")
 
 
 def rmse(a: np.ndarray, b: np.ndarray) -> float:
@@ -824,6 +854,183 @@ def phase_engines():
         raise AssertionError("megakernel and wavefront disagree on the card")
     check_images(m, out["cpu"][0], "cube megakernel cuda vs cpu")
     check_tallies(mrays, out["cpu"][1], "cube megakernel cuda vs cpu")
+
+
+def timed_phase(label: str, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {label}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def phase_lbvh_vs_sah(scene, host, o, d, smi: str) -> None:
+    """The binary-LBVH cross-check intersector (plain torch, no kernel)
+    against traverse8 on the headline scene's 1M bounce rays: MT against
+    Woop, ids in Morton slots on both sides. Times the walk (a second
+    call, after one that warms it up) and counts its steps."""
+    from sycl_ray_tracer_torch.models.scene import build_device_scene
+    from sycl_ray_tracer_torch.models.trace import intersect_scene
+    from sycl_ray_tracer_torch.ops.traverse import traverse
+
+    t0 = time.perf_counter()
+    lb = build_device_scene(host, device=o.x.device, intersector="lbvh")
+    torch.cuda.synchronize()
+    log(f"[lbvh] sponza_proc scale 2: {lb.lbvh_lo.shape[0] // 2} leaves of "
+        f"{lb.leaf_size} slots, tables "
+        f"{table_bytes(lb.lbvh_lo, lb.lbvh_hi, lb.lbvh_v0, lb.lbvh_e1, lb.lbvh_e2)}"
+        f" bytes, built in {time.perf_counter() - t0:.2f} s")
+    b = intersect_scene(scene, o, d)
+    intersect_scene(lb, o, d)
+    torch.cuda.synchronize()
+    traverse.steps = 0
+    t0 = time.perf_counter()
+    a = intersect_scene(lb, o, d)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"[lbvh] traverse on {o.x.shape[0]} bounce rays on {smi}: "
+        f"{secs:.4f} s in {traverse.steps} steps "
+        f"({o.x.shape[0] / secs / 1e6:.2f} Mrays/s)")
+    disagreement(a, b, "LBVH (MT) vs traverse8 (Woop) sponza_proc bounce 1M")
+
+
+def phase_deep_tree(smi: str) -> None:
+    """sponza_like_glb(scale=3), whose SAH tree is deeper than a
+    64-entry stack allows: traverse8 against plain on 65,536 primary and
+    65,536 first-bounce rays (the rules of 3), then a wavefront frame,
+    256x256, 4 spp, depth 6, that launches traverse8 once per bounce and
+    is finite and not black."""
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.ops import kernels
+    from sycl_ray_tracer_torch.ops.traverse1 import traverse1
+    from sycl_ray_tracer_torch.ops.traverse5 import traverse5
+    from sycl_ray_tracer_torch.ops.traverse8 import traverse8
+    from sycl_ray_tracer_torch.utils.procgen import sponza_like_glb
+
+    t0 = time.perf_counter()
+    scene, cam, host = load(sponza_like_glb(scale=3), 256, 256,
+                            torch.device("cuda"))
+    depth = scene.bvh_depth
+    log(f"[deep] sponza_like_glb(scale=3): {scene.num_triangles} triangles, "
+        f"SAH depth {depth} (up to {7 * depth + 1} stack entries of "
+        f"{kernels.STACK}), NI {scene.sah_ni}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if depth < 10:
+        raise AssertionError("sponza_like_glb(scale=3) is not deeper than "
+                             "depth 9")
+    kern, plain = kernel_pair("traverse8", scene)
+    prim, bounce = make_rays(scene, cam, 256, 256, 65536)
+    compare_hits(kern, plain, *prim, "traverse8 deep primary")
+    compare_hits(kern, plain, *bounce, "traverse8 deep bounce")
+    for k in (traverse8, traverse5, traverse1):
+        k.launches = 0
+    img, rays = render_wavefront(scene, cam, width=256, height=256, spp=4,
+                                 max_depth=6, seed=0)
+    img = img.cpu().numpy()
+    bounces = int((rays > 0).sum())
+    log(f"[deep] wavefront 256x256 spp4 d6 on {smi}: tallies "
+        f"{rays.tolist()}, traverse8 launches {traverse8.launches}, image "
+        f"mean {img.mean():.4f}")
+    if traverse8.launches != bounces or traverse5.launches or \
+            traverse1.launches:
+        raise AssertionError("the deep frame went through the wrong kernels")
+    if not np.isfinite(img).all() or img.max() <= 0.0 or img.mean() < 0.01:
+        raise AssertionError("the deep frame is not finite or is black")
+
+
+def phase_sponza_gate(smi: str) -> None:
+    """The port's own Sponza-scale gate (tests/test_render.py:149-183):
+    sponza_like_glb(scale=1), 64x48, 64 spp, depth 6, wavefront frames
+    on three trees, each timed after a 1-spp warm-up: the SAH tree
+    (traverse8, the default), the Morton heap of leaf size 4 (traverse1)
+    and the binary LBVH (plain torch). The scene has coplanar triangles
+    of different materials; where a ray meets two of them at a bit-equal
+    t, each walk keeps the first it finds, so every pair of walks breaks
+    these ties its own way (traverse1 against its plain version: 770 of
+    1M sponza_proc bounce rays). The LBVH is held against each kernel's
+    frame with the untrimmed ceiling of tests/test_render.py, RMSE
+    < 4e-3, flips under 0.5 % of pixels, p99 of the per-pixel max |diff|
+    < 0.02, total rays within 1 % and image std > 0.05."""
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.ops.traverse import traverse
+    from sycl_ray_tracer_torch.ops.traverse1 import traverse1
+    from sycl_ray_tracer_torch.ops.traverse8 import traverse8
+    from sycl_ray_tracer_torch.utils.fixtures import load_pair
+    from sycl_ray_tracer_torch.utils.procgen import sponza_like_glb
+
+    glb = sponza_like_glb(scale=1)
+    cuda = torch.device("cuda")
+    kw = dict(width=64, height=48, spp=64, max_depth=6, seed=0)
+    out = {}
+    for name, k, isect in (("SAH", 8, "auto"), ("heap", 4, "auto"),
+                           ("LBVH", 8, "lbvh")):
+        scene, host, cam = load_pair(glb, 64, 48, leaf_size=k, device=cuda,
+                                     intersector=isect)
+        render_wavefront(scene, cam, **dict(kw, spp=1, seed=1))
+        traverse8.launches = traverse1.launches = traverse.steps = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, rays = render_wavefront(scene, cam, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"[gate] sponza_like_glb(scale=1) ({host.num_triangles} "
+            f"triangles) {name} 64x48 spp64 d6 on {smi}: {secs:.4f} s "
+            f"({int(rays.sum()) / secs / 1e6:.3f} Mrays/s), tallies "
+            f"{rays.tolist()}, traverse8 launches {traverse8.launches}, "
+            f"traverse1 launches {traverse1.launches}, LBVH steps "
+            f"{traverse.steps}")
+        out[name] = (img.cpu().numpy(), rays.numpy())
+    for ref in ("SAH", "heap"):
+        (a, ra), (b, rb) = out[ref], out["LBVH"]
+        err = rmse(a, b)
+        d = np.abs(a - b).max(axis=-1)
+        p99 = float(np.percentile(d, 99))
+        flips = float((d > FLIP_THRESH).mean())
+        dr = abs(int(ra.sum()) - int(rb.sum())) / int(ra.sum())
+        log(f"[gate] {ref} vs LBVH: untrimmed RMSE {err:.4g}, p99 max "
+            f"|diff| {p99:.4g}, flips {flips:.5f}, total rays differ by "
+            f"{dr:.5f}, std {b.std():.4f}")
+        if not (err < RMSE_UNTRIMMED_GATE and p99 < 0.02 and dr < 0.01
+                and b.std() > 0.05 and flips < FLIP_FRACTION_MAX):
+            raise AssertionError(f"the Sponza-scale gate failed: {ref} vs "
+                                 "LBVH")
+
+
+def phase_oracle_gate(smi: str) -> None:
+    """The port's numpy oracle (on the host) against the card's renders
+    with both engines, on the configurations of
+    tests/test_render.py:79-126 (load_pair: the Morton heap of leaf size
+    4, traverse1): the flip-tolerant gate for each engine, and the
+    megakernel's tallies against the wavefront's."""
+    from sycl_ray_tracer_torch.models.megakernel import render_megakernel
+    from sycl_ray_tracer_torch.models.oracle import render_oracle
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.utils import fixtures
+
+    for label, glb, size, spp, depth, rr in (
+            ("cube", fixtures.cube_scene_glb(), 96, 4, 8, False),
+            ("dielectric", fixtures.dielectric_scene_glb(subdiv=1), 64, 16,
+             12, False),
+            ("dielectric rr", fixtures.dielectric_scene_glb(subdiv=1), 64,
+             16, 12, True),
+            ("textured", fixtures.textured_scene_glb(), 64, 4, 4, False)):
+        kw = dict(width=size, height=size, spp=spp, max_depth=depth, seed=0,
+                  rr=rr)
+        scene, host, cam = fixtures.load_pair(glb, size, size,
+                                              device=torch.device("cuda"))
+        t0 = time.perf_counter()
+        oracle = render_oracle(host, cam, **kw)
+        secs = time.perf_counter() - t0
+        w, wrays = render_wavefront(scene, cam, **kw)
+        m, mrays = render_megakernel(scene, cam, **kw)
+        name = f"{label} {size}x{size} spp{spp} d{depth}"
+        log(f"[oracle] {name}: numpy oracle on the host in {secs:.2f} s")
+        check_images(w.cpu().numpy(), oracle, f"{name} wavefront on {smi} "
+                     "vs oracle")
+        check_images(m.cpu().numpy(), oracle, f"{name} megakernel on {smi} "
+                     "vs oracle")
+        check_tallies(mrays.numpy(), wrays.numpy(),
+                      f"{name} megakernel vs wavefront")
 
 
 def phase_headline(render, scene, cam, smi: str, label: str, kernel,
@@ -930,6 +1137,8 @@ def main() -> int:
     b8 = bound("traverse8", scene, kern, *bounce1m,
                "traverse8 sponza_proc bounce 1M")
     phase_masked(kern, plain, *bounce1m, smi, "traverse8 sponza_proc bounce")
+    timed_phase("LBVH against traverse8", phase_lbvh_vs_sah, scene, host,
+                *bounce1m, smi)
     del prim1m, bounce1m
     err5 = phase_mt_mode(scene, host, {"primary": prim, "bounce": bounce})
     del prim, bounce
@@ -1032,6 +1241,14 @@ def main() -> int:
                              "headline tallies differ")
     megakernel_bound(scene, cam, "minecraft_proc --shared-instances "
                      "megakernel traverse5", "traverse5", stride=8)
+    del scene, cam, ih, kern, plain
+    torch.cuda.empty_cache()
+
+    # ---- the judges: a tree deeper than 64 stack entries, the port's
+    # own Sponza-scale gate (SAH against LBVH), the numpy oracle ----
+    timed_phase("deep tree", phase_deep_tree, smi)
+    timed_phase("Sponza gate", phase_sponza_gate, smi)
+    timed_phase("oracle gate", phase_oracle_gate, smi)
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", **KERNELS[name],

@@ -42,9 +42,10 @@
 
 // Per-thread stack depth. The walk pops one node and pushes at most 8
 // internal children, so a tree of depth D needs at most 7*D + 1
-// entries; models/scene.py and models/instanced.py refuse trees deeper
-// than that allows.
-#define SRT_STACK 64
+// entries: 128 covers depth 18. models/scene.py and models/instanced.py
+// refuse trees deeper than that allows. The stack lives in local
+// memory and is touched only as deep as a ray goes.
+#define SRT_STACK 128
 
 namespace srt {
 

@@ -73,3 +73,19 @@ def generate_rays(cam: Camera, px: torch.Tensor, py: torch.Tensor,
     r = px.shape[0]
     o = V3(*(cam.center[i].expand(r).contiguous() for i in range(3)))
     return o, d
+
+
+def generate_rays_np(cam: Camera, px: np.ndarray, py: np.ndarray,
+                     key: np.ndarray):
+    """numpy twin for the oracle (bit-identical jitter); the camera may
+    live on any device. Returns (o, d) as [R, 3] float32 arrays."""
+    c, p00, du, dv = (t.detach().cpu().numpy().astype(np.float32)
+                      for t in (cam.center, cam.pixel00, cam.delta_u,
+                                cam.delta_v))
+    jx = _rng.uniform_np(key, 0) - np.float32(0.5)
+    jy = _rng.uniform_np(key, 1) - np.float32(0.5)
+    fx = px.astype(np.float32) + jx
+    fy = py.astype(np.float32) + jy
+    d = p00[None, :] + fx[:, None] * du[None, :] + fy[:, None] * dv[None, :] - c
+    o = np.broadcast_to(c, d.shape).copy()
+    return o.astype(np.float32), d.astype(np.float32)

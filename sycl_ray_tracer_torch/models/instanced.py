@@ -123,12 +123,18 @@ def _build_tlas(boxes: np.ndarray) -> Tuple[list, int]:
     return nodes, depth
 
 
-def build_instanced_device_scene(ih: InstancedHostScene,
-                                 device="cuda") -> DeviceScene:
+def build_instanced_device_scene(ih: InstancedHostScene, device="cuda",
+                                 intersector: str = "auto") -> DeviceScene:
     """Local SAH BVH8s (native, host), the global tree, the shared MT
     and shading tables and the per-leaf instance tables, all moved to
     `device` once (see the module docstring and models/scene.py).
-    Raises on a machine without CUDA unless given device="cpu"."""
+    Raises on a machine without CUDA unless given device="cpu". There
+    is no binary-LBVH path for two-level scenes (nor in the JAX
+    package): intersector="lbvh" raises; bake the scene instead."""
+    if intersector != "auto":
+        raise ValueError("two-level instanced scenes have only the "
+                         "intersector 'auto'; bake the scene "
+                         "(InstancedHostScene.bake) for 'lbvh'")
     device = kernels.resolve_device(device)
     k = LEAF_SIZE
     n_prims = len(ih.prims)

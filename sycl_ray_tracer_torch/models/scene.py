@@ -26,6 +26,13 @@ ops/wbvh.py, whose hit ids are canonical Morton slots (no remap):
                                (v0, e1, e2; component c of slot j at
                                c*K + j)
   bvh_ni = NI, bvh_depth, leaf_size = K
+Baked scenes at any K built with intersector="lbvh", walked by
+ops/traverse.py (plain torch) on the binary LBVH of ops/lbvh.py, whose
+leaves are the K-slot leaves of the canonical Morton order (8^depth of
+them, a power of two), so hit ids need no remap; no other tree is built:
+  lbvh_lo, lbvh_hi [2L, 3] f32  the binary heap's boxes (row 0 unused)
+  lbvh_v0, lbvh_e1, lbvh_e2 [L*K, 3] f32  per slot v0, v1 - v0 and
+                               v2 - v0 (zero on padding slots)
 Two-level instanced scenes (has_instances), intersected by
 ops/traverse5.py in itf mode (csrc/traverse5.cuh); bvh_woop is None:
   bvh_nodes      [NI, 48] f32  one global tree: a TLAS over the
@@ -65,11 +72,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from sycl_ray_tracer_torch.ops import kernels, wbvh, woop
+from sycl_ray_tracer_torch.ops import kernels, lbvh, wbvh, woop
 from sycl_ray_tracer_torch.ops import sah as _sah
 from sycl_ray_tracer_torch.utils.gltf import HostScene, load_glb
 
 LEAF_SIZE = 8
+INTERSECTORS = ("auto", "lbvh")
 
 
 @dataclasses.dataclass
@@ -105,6 +113,13 @@ class DeviceScene:
     inst_xf: torch.Tensor | None = None
     inst_nmat: torch.Tensor | None = None
     inst_s8: int = 0
+    # "lbvh": the binary-LBVH cross-check intersector (ops/traverse.py)
+    intersector: str = "auto"
+    lbvh_lo: torch.Tensor | None = None
+    lbvh_hi: torch.Tensor | None = None
+    lbvh_v0: torch.Tensor | None = None
+    lbvh_e1: torch.Tensor | None = None
+    lbvh_e2: torch.Tensor | None = None
 
     @property
     def has_instances(self) -> bool:
@@ -126,7 +141,7 @@ def _inverse_order(order: np.ndarray, n: int) -> np.ndarray:
 
 def check_stack(depth: int) -> None:
     """Refuse a tree whose internal depth could overflow the kernels'
-    per-ray stack (7*depth + 1 entries)."""
+    per-ray stack (7*depth + 1 entries: depth 18 at most)."""
     if 7 * depth + 1 > kernels.STACK:
         raise ValueError(
             f"tree depth {depth} needs a traversal stack of "
@@ -142,13 +157,18 @@ def pack_texels(textures: np.ndarray) -> np.ndarray:
 
 
 def build_device_scene(host: HostScene, leaf_size: int = LEAF_SIZE,
-                       device="cuda") -> DeviceScene:
+                       device="cuda", intersector: str = "auto"
+                       ) -> DeviceScene:
     """The traversal tables of `leaf_size` (8: SAH BVH8 built natively on
     the host, with Woop leaves; any other K >= 1: the Morton heap of
-    K-slot leaves), and the shading tables in the canonical Morton
-    order, all moved to `device` once. Raises on a machine without CUDA
-    unless given device="cpu"."""
+    K-slot leaves; with intersector="lbvh", at any K: the binary LBVH
+    over the leaves of the Morton order), and the shading tables in the
+    canonical Morton order, all moved to `device` once. Raises on a
+    machine without CUDA unless given device="cpu"."""
     device = kernels.resolve_device(device)
+    if intersector not in INTERSECTORS:
+        raise ValueError(f"intersector must be one of {INTERSECTORS}, not "
+                         f"{intersector!r}")
     n = host.num_triangles
     if n == 0:
         raise ValueError("scene has no triangles")
@@ -160,7 +180,19 @@ def build_device_scene(host: HostScene, leaf_size: int = LEAF_SIZE,
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=device, dtype=dtype)
 
-    if k == LEAF_SIZE:
+    if intersector == "lbvh":
+        order = wbvh.morton_order(host.tri_v, k)
+        valid = order >= 0
+        sv = host.tri_v[np.maximum(order, 0)].astype(np.float32)
+        sv[~valid] = 0.0
+        lo, hi = lbvh.fit_nodes(dev(sv), dev(valid), sv.shape[0] // k, k)
+        tree = dict(
+            bvh_nodes=None, bvh_child_ids=None, bvh_woop=None,
+            bvh_remap=None, sah_ni=0, bvh_depth=wbvh.plan(n, k)[0],
+            intersector=intersector, lbvh_lo=lo, lbvh_hi=hi,
+            lbvh_v0=dev(sv[:, 0]), lbvh_e1=dev(sv[:, 1] - sv[:, 0]),
+            lbvh_e2=dev(sv[:, 2] - sv[:, 0]))
+    elif k == LEAF_SIZE:
         sahb = _sah.build_sah(host.tri_v, k)
         check_stack(sahb.depth)
         rows = _sah.leaf_rows(host.tri_v, sahb.order, k)
@@ -225,7 +257,8 @@ def build_device_scene(host: HostScene, leaf_size: int = LEAF_SIZE,
 
 
 def load_scene(path: str, leaf_size: int = LEAF_SIZE,
-               device="cuda") -> tuple:
+               device="cuda", intersector: str = "auto") -> tuple:
     """.glb path -> (DeviceScene, HostScene)."""
     host = load_glb(path)
-    return build_device_scene(host, leaf_size, device=device), host
+    return build_device_scene(host, leaf_size, device=device,
+                              intersector=intersector), host

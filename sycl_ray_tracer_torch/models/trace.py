@@ -21,6 +21,7 @@ import torch
 from sycl_ray_tracer_torch.models import materials as mats
 from sycl_ray_tracer_torch.ops import rng as _rng
 from sycl_ray_tracer_torch.ops.intersect import Hit
+from sycl_ray_tracer_torch.ops.traverse import traverse
 from sycl_ray_tracer_torch.ops.traverse1 import traverse1
 from sycl_ray_tracer_torch.ops.traverse5 import traverse5
 from sycl_ray_tracer_torch.ops.traverse8 import traverse8
@@ -51,7 +52,13 @@ def intersect_scene(scene, o: V3, d: V3,
     and two-level instanced scenes through the global tree with
     instance-transformed MT leaves (ops/traverse5.py, itf mode); their
     ids map through bvh_remap (SAH slot -> canonical Morton slot;
-    global slot -> inst * S8 + shared row)."""
+    global slot -> inst * S8 + shared row). Scenes built with
+    intersector="lbvh" go through the binary-LBVH walk in plain torch
+    (ops/traverse.py), whose ids are Morton slots too."""
+    if scene.intersector == "lbvh":
+        return traverse(scene.lbvh_lo, scene.lbvh_hi, scene.lbvh_v0,
+                        scene.lbvh_e1, scene.lbvh_e2, o, d, scene.leaf_size,
+                        active_in=active)
     if scene.has_heap:
         return traverse1(scene.bvh_children, scene.bvh_leaves, scene.bvh_ni,
                          scene.leaf_size, o, d, active=active)

@@ -25,7 +25,7 @@ from sycl_ray_tracer_torch.ops.vec import V3
 
 # Per-thread stack depth; must equal SRT_STACK in csrc/bvh8_walk.cuh
 # (checked when a library loads).
-STACK = 64
+STACK = 128
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")

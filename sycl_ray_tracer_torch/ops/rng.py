@@ -11,10 +11,15 @@ tensors holding values in [0, 2^32). Every add or multiply is masked
 back to 32 bits before the next shift, which keeps shifts logical.
 No intermediate product exceeds 2^62 (a 32-bit word times a multiplier
 below 2^30), so int64 never overflows.
+
+The *_np functions are the numpy twins (uint32 arithmetic that wraps),
+the draws of the numpy oracle (models/oracle.py); they equal the JAX
+package's make_key_np, uniform_np and uniform3_np bit for bit.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -79,3 +84,52 @@ def uniform3(key: torch.Tensor, counter):
     a1, _ = _pcg2d(key ^ 0x9E3779B9, counter)
     return (_bits_to_unit_float(a0), _bits_to_unit_float(b0),
             _bits_to_unit_float(a1))
+
+
+# ---------------------------------------------------------------------
+# numpy twins (uint32 arrays) for the oracle
+# ---------------------------------------------------------------------
+
+_U32 = np.uint32
+
+
+def _pcg2d_np(a: np.ndarray, b: np.ndarray):
+    with np.errstate(over="ignore"):
+        a = a.astype(_U32)
+        b = b.astype(_U32)
+        mult = _U32(_MULT)
+        a = a * mult + _U32(0x9E3779B9)
+        b = b * mult + _U32(0x85EBCA6B)
+        a = (a + b * mult).astype(_U32)
+        b = (b + a * mult).astype(_U32)
+        a = a ^ (a >> _U32(16))
+        b = b ^ (b >> _U32(16))
+        a = (a + b * mult).astype(_U32)
+        b = (b + a * mult).astype(_U32)
+        a = a ^ (a >> _U32(16))
+        b = b ^ (b >> _U32(16))
+    return a, b
+
+
+def make_key_np(seed, lane) -> np.ndarray:
+    a, b = _pcg2d_np(np.asarray(seed, _U32), np.asarray(lane, _U32))
+    with np.errstate(over="ignore"):
+        return a ^ (b * _U32(_PCG_MULT))
+
+
+def _bits_to_unit_float_np(bits: np.ndarray) -> np.ndarray:
+    return (bits >> _U32(8)).astype(np.float32) * np.float32(2.0 ** -24)
+
+
+def uniform_np(key, counter) -> np.ndarray:
+    a, _ = _pcg2d_np(np.asarray(key, _U32), np.asarray(counter, _U32))
+    return _bits_to_unit_float_np(a)
+
+
+def uniform3_np(key, counter):
+    key = np.asarray(key, _U32)
+    c = np.asarray(counter, _U32)
+    a0, b0 = _pcg2d_np(key, c)
+    a1, _ = _pcg2d_np(key ^ _U32(0x9E3779B9), c)
+    return (_bits_to_unit_float_np(a0), _bits_to_unit_float_np(b0),
+            _bits_to_unit_float_np(a1))

@@ -46,6 +46,11 @@ def dot(a: V3, b: V3) -> torch.Tensor:
     return a.x * b.x + a.y * b.y + a.z * b.z
 
 
+def cross(a: V3, b: V3) -> V3:
+    return V3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+              a.x * b.y - a.y * b.x)
+
+
 def length_squared(a: V3) -> torch.Tensor:
     return dot(a, a)
 

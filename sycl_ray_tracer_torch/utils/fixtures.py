@@ -243,16 +243,19 @@ def instanced_scene_glb(r: int = 1000, seed: int = 5) -> bytes:
     return b.tobytes()
 
 
-def load_pair(glb_bytes, width, height, leaf_size=4, device="cuda"):
+def load_pair(glb_bytes, width, height, leaf_size=4, device="cuda",
+              intersector="auto"):
     """(DeviceScene, HostScene, Camera) from GLB bytes, at the JAX
     package's test leaf size: its load_pair builds the Morton heap of
-    4-triangle leaves, the path of its render gate."""
+    4-triangle leaves, the path of its render gate. intersector="lbvh"
+    builds the binary-LBVH cross-check tables instead."""
     from sycl_ray_tracer_torch.models.camera import make_camera
     from sycl_ray_tracer_torch.models.scene import build_device_scene
     from sycl_ray_tracer_torch.utils.gltf import load_glb
 
     host = load_glb(glb_bytes)
-    scene = build_device_scene(host, leaf_size=leaf_size, device=device)
+    scene = build_device_scene(host, leaf_size=leaf_size, device=device,
+                               intersector=intersector)
     cam = make_camera(width, height, host.camera_position,
                       host.camera_direction, host.camera_focal_length,
                       device=device)

@@ -403,3 +403,46 @@ def test_wrapper_refuses_misaligned_tables(cuda, name):
         with pytest.raises(ValueError, match="16-byte"):
             kern(*ktabs, o, d, leaf_slot=kw["leaf_slot"],
                  leaf_xf=misaligned(kw["leaf_xf"]))
+
+
+def test_lbvh_walk_cuda_matches_cpu(cuda):
+    """The binary-LBVH walk (plain torch) gives the same hits bit for bit
+    on the card as on the cpu, and an LBVH render launches no kernel."""
+    from sycl_ray_tracer_torch.ops.traverse import traverse
+
+    host = load_glb(tproc.sponza_like_glb(scale=1))
+    scenes = {dev: build_device_scene(host, device=dev, intersector="lbvh")
+              for dev in (cuda, torch.device("cpu"))}
+    o, d = _rays(host, 4096, 3, torch.device("cpu"))
+    hits = {}
+    for dev, s in scenes.items():
+        tabs = (s.lbvh_lo, s.lbvh_hi, s.lbvh_v0, s.lbvh_e1, s.lbvh_e2)
+        hits[dev.type] = traverse(*tabs, V3(*(c.to(dev) for c in o)),
+                                  V3(*(c.to(dev) for c in d)), s.leaf_size)
+    for a, b in zip(hits["cuda"], hits["cpu"]):
+        assert torch.equal(a.cpu(), b)
+    cam = make_camera(32, 24, host.camera_position, host.camera_direction,
+                      host.camera_focal_length, device=cuda)
+    before = (t8.traverse8.launches, t1.traverse1.launches,
+              t5.traverse5.launches)
+    img, _ = render_wavefront(scenes[cuda], cam, width=32, height=24, spp=2,
+                              max_depth=3)
+    assert bool(torch.isfinite(img).all())
+    assert (t8.traverse8.launches, t1.traverse1.launches,
+            t5.traverse5.launches) == before
+
+
+def test_deep_tree_kernel_matches_plain(cuda):
+    """sponza_like_glb(scale=3) (SAH depth 10, up to 71 stack entries):
+    traverse8 equals its plain version outside 1e-6-relative t ties."""
+    host = load_glb(tproc.sponza_like_glb(scale=3))
+    scene = build_device_scene(host, device=cuda)
+    assert scene.bvh_depth >= 10
+    tabs = (scene.bvh_nodes, scene.bvh_child_ids, scene.bvh_woop,
+            scene.sah_ni)
+    o, d = _rays(host, 8192, 4, cuda)
+    k = t8.traverse8(*tabs, o, d)
+    p = t8.traverse8_plain(*tabs, o, d)
+    assert torch.equal(k.tri >= 0, p.tri >= 0)
+    tie = (k.t - p.t).abs() <= 1e-6 * p.t.abs()
+    assert not bool(((k.tri != p.tri) & ~tie).any())

@@ -1,0 +1,394 @@
+"""The port's binary LBVH (ops/lbvh.py) and its walk (ops/traverse.py)
+against the JAX package's (mirroring tests/test_lbvh.py), the
+intersector="lbvh" scene tables against JAX build_device_scene's bit
+for bit, LBVH renders against JAX LBVH renders, the port's own
+Sponza-scale gate (tests/test_render.py:149-183 with the port on both
+sides), and the kernels' stack at SAH depth 10."""
+
+import functools
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from sycl_ray_tracer_torch.models.scene import (build_device_scene,
+                                                check_stack)
+from sycl_ray_tracer_torch.models.trace import intersect_scene
+from sycl_ray_tracer_torch.models.wavefront import (_bounce, _gen_queue,
+                                                    render_wavefront)
+from sycl_ray_tracer_torch.ops import kernels, lbvh
+from sycl_ray_tracer_torch.ops.intersect import intersect_brute_np
+from sycl_ray_tracer_torch.ops.traverse import traverse
+from sycl_ray_tracer_torch.ops.vec import V3
+from sycl_ray_tracer_torch.utils import fixtures as tfix
+from sycl_ray_tracer_torch.utils.gltf import load_glb
+from sycl_ray_tracer_torch.utils.procgen import sponza_like_glb
+
+from tests.test_render import check_oracle_match
+from tests.torch_common import host_vs_plain, jv3, pinned_rays, tv3
+
+torch.set_num_threads(2)
+
+# the thresholds of tests/test_render.py:test_sponza_scale_convergence_gate
+RMSE_GATE = 2e-3
+P99_GATE = 0.02
+
+
+def _random_tris(rs, n, spread=5.0, size=0.3):
+    c = rs.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    return c[:, None, :] + rs.uniform(-size, size, (n, 3, 3)).astype(
+        np.float32)
+
+
+def _leaf_rows(sorted_v: torch.Tensor):
+    return (sorted_v[:, 0, :], sorted_v[:, 1, :] - sorted_v[:, 0, :],
+            sorted_v[:, 2, :] - sorted_v[:, 0, :])
+
+
+@functools.lru_cache(maxsize=None)
+def _sponza1():
+    return sponza_like_glb(scale=1)
+
+
+def test_build_invariants():
+    tri = _random_tris(np.random.RandomState(1234), 1000)
+    bvh, sorted_v, valid = lbvh.build(torch.from_numpy(tri), leaf_size=4)
+    assert bvh.num_leaves == lbvh.next_pow2(-(-1000 // 4))
+    assert bvh.leaf_size == 4
+    lbvh.validate(bvh, sorted_v, valid)
+    order = bvh.order.numpy()
+    assert sorted(order[order >= 0].tolist()) == list(range(1000))
+
+
+@pytest.mark.parametrize("n,k", [(1000, 4), (1000, 8), (37, 4), (37, 8)])
+def test_build_equals_jax(n, k):
+    import jax.numpy as jnp
+
+    from sycl_ray_tracer_tpu.ops import lbvh as jlbvh
+
+    tri = _random_tris(np.random.RandomState(n + k), n)
+    bvh, sorted_v, valid = lbvh.build(torch.from_numpy(tri), leaf_size=k)
+    jbvh, jsorted, jvalid = jlbvh.build(jnp.asarray(tri), leaf_size=k)
+    assert np.array_equal(bvh.order.numpy(), np.asarray(jbvh.order))
+    for a, b in ((bvh.node_lo, jbvh.node_lo), (bvh.node_hi, jbvh.node_hi),
+                 (sorted_v, jsorted), (valid, jvalid)):
+        assert a.numpy().dtype == np.asarray(b).dtype
+        assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+def test_morton_locality():
+    # points along a line sort monotonically
+    p = torch.from_numpy(np.stack([np.linspace(0, 1, 64)] * 3,
+                                  axis=1).astype(np.float32))
+    codes = lbvh.morton30(p, torch.zeros(3), torch.ones(3)).numpy()
+    assert (np.diff(codes) >= 0).all() and codes[-1] > codes[0]
+
+
+@pytest.mark.parametrize("n,k", [(37, 4), (1000, 4), (1000, 8)])
+def test_traversal_matches_brute(n, k):
+    rs = np.random.RandomState(7 * n + k)
+    tri = _random_tris(rs, n)
+    bvh, sorted_v, _ = lbvh.build(torch.from_numpy(tri), leaf_size=k)
+    o_np = rs.uniform(-8, 8, (2000, 3)).astype(np.float32)
+    d_np = rs.uniform(-1, 1, (2000, 3)).astype(np.float32)
+    hit = traverse(bvh.node_lo, bvh.node_hi, *_leaf_rows(sorted_v),
+                   tv3(o_np), tv3(d_np), k)
+    t_b, id_b, _, _ = intersect_brute_np(o_np, d_np, sorted_v.numpy())
+    ids, t = hit.tri.numpy(), hit.t.numpy()
+    assert ((ids >= 0) == (id_b >= 0)).all() and (ids >= 0).any()
+    both = ids >= 0
+    np.testing.assert_allclose(t[both], t_b[both], rtol=1e-5, atol=1e-6)
+    assert (ids[both] == id_b[both]).all()
+    assert (t[~both] == np.float32(3e38)).all()
+
+
+def test_inactive_lanes_skip():
+    tri = _random_tris(np.random.RandomState(3), 256)
+    bvh, sorted_v, _ = lbvh.build(torch.from_numpy(tri), leaf_size=4)
+    o = V3(torch.zeros(8), torch.zeros(8), torch.full((8,), 10.0))
+    d = V3(torch.zeros(8), torch.zeros(8), torch.full((8,), -1.0))
+    active = torch.tensor([True, False] * 4)
+    hit = traverse(bvh.node_lo, bvh.node_hi, *_leaf_rows(sorted_v), o, d, 4,
+                   active_in=active)
+    full = traverse(bvh.node_lo, bvh.node_hi, *_leaf_rows(sorted_v), o, d, 4)
+    assert (hit.tri[~active] == -1).all()
+    assert torch.equal(hit.tri[active], full.tri[active])
+    assert torch.equal(hit.t[active], full.t[active])
+
+
+def test_empty_and_tiny_scene():
+    bvh, sorted_v, valid = lbvh.build(torch.zeros((0, 3, 3)), leaf_size=4)
+    assert not bool(valid.any()) and bvh.num_leaves == 1
+    o = V3(torch.tensor([0.2]), torch.tensor([0.2]), torch.tensor([5.0]))
+    d = V3(torch.tensor([0.0]), torch.tensor([0.0]), torch.tensor([-1.0]))
+    assert int(traverse(bvh.node_lo, bvh.node_hi, *_leaf_rows(sorted_v), o, d,
+                        4).tri[0]) == -1
+    tri1 = torch.tensor([[[0, 0, 0], [1, 0, 0], [0, 1, 0]]],
+                        dtype=torch.float32)
+    bvh1, sv1, _ = lbvh.build(tri1, leaf_size=4)
+    hit = traverse(bvh1.node_lo, bvh1.node_hi, *_leaf_rows(sv1), o, d, 4)
+    assert int(hit.tri[0]) == 0
+    assert np.isclose(float(hit.t[0]), 5.0, atol=1e-5)
+
+
+def _jax_scene(glb: bytes, k: int):
+    from sycl_ray_tracer_tpu.models.scene import build_device_scene as jbuild
+    from sycl_ray_tracer_tpu.utils.gltf import load_glb as jload
+
+    return jbuild(jload(glb), leaf_size=k, intersector="lbvh")
+
+
+def test_traverse_equals_jax_on_sponza():
+    """Port traverse against JAX traverse on the JAX scene's LBVH tables
+    (K = 8) and 8,192 rays of sponza_like_glb(scale=1): 4,096 primaries
+    and 4,096 first-bounce rays. XLA and torch round the slab and MT
+    expressions apart by up to about 1e-6 relative, so ids may differ
+    only where t ties within 1e-6 relative; t agrees to rtol 1e-5, with
+    an absolute floor of 1e-7 (0.1 % of TNEAR) for the bounce rays that
+    hit within about 1e-3 of their origin, where the MT terms cancel and
+    the rounding of t is absolute."""
+    from sycl_ray_tracer_tpu.ops.traverse import traverse as jtraverse
+
+    glb = _sponza1()
+    js = _jax_scene(glb, 8)
+    tabs = [torch.from_numpy(np.array(x)) for x in (
+        js.lbvh_lo, js.lbvh_hi, js.lbvh_v0, js.lbvh_e1, js.lbvh_e2)]
+    scene, _, cam = tfix.load_pair(glb, 64, 64, leaf_size=8, device="cpu",
+                                   intersector="lbvh")
+    q, _ = _gen_queue(cam, 0, 0, width=64, height=64)
+    q2, q2_id = _gen_queue(cam, 0, 0, width=64, height=64, waves=2)
+    qb, _ = _bounce(scene, q2, q2_id, 0, torch.zeros((64 * 64, 3)), 0, 0)
+    rays = torch.cat([q[:6, :4096], qb[:6, :4096]], dim=1).contiguous()
+    assert rays.shape[1] == 8192
+    o, d = V3(*rays[0:3]), V3(*rays[3:6])
+    steps = traverse.steps
+    hit = traverse(*tabs, o, d, 8)
+    assert traverse.steps > steps
+    r_np = rays.numpy().T
+    jhit = jtraverse(js.lbvh_lo, js.lbvh_hi, js.lbvh_v0, js.lbvh_e1,
+                     js.lbvh_e2, jv3(r_np[:, 0:3]), jv3(r_np[:, 3:6]), 8)
+    ids, jids = hit.tri.numpy(), np.asarray(jhit.tri)
+    t, jt = hit.t.numpy(), np.asarray(jhit.t)
+    hit_m = jids >= 0
+    assert ((ids >= 0) == hit_m).all() and hit_m.mean() > 0.5
+    tie = np.abs(t - jt) <= 1e-6 * np.abs(jt)
+    assert (tie | (ids == jids))[hit_m].all()
+    np.testing.assert_allclose(t[hit_m], jt[hit_m], rtol=1e-5, atol=1e-7)
+    assert (ids == jids).mean() > 0.999
+
+
+@pytest.mark.parametrize("name,k", [("cube", 8), ("sponza1", 8),
+                                    ("cube", 4)])
+def test_scene_tables_equal_jax(name, k):
+    """The intersector="lbvh" tables carried across from the JAX build,
+    bit for bit."""
+    glb = _sponza1() if name == "sponza1" else tfix.cube_scene_glb()
+    js = _jax_scene(glb, k)
+    ts = build_device_scene(load_glb(glb), leaf_size=k, device="cpu",
+                            intersector="lbvh")
+    assert ts.intersector == "lbvh" and not ts.has_heap
+    assert ts.bvh_nodes is None and ts.leaf_size == k
+    for field in ("lbvh_lo", "lbvh_hi", "lbvh_v0", "lbvh_e1", "lbvh_e2"):
+        a, b = getattr(ts, field).numpy(), np.asarray(getattr(js, field))
+        assert a.dtype == b.dtype and np.array_equal(a, b), field
+    lk = ts.lbvh_v0.shape[0]
+    assert ts.shade_tbl.shape[0] == lk
+    assert ts.lbvh_lo.shape[0] == 2 * (lk // k)
+
+
+def test_intersector_is_checked():
+    from sycl_ray_tracer_torch.models.instanced import (
+        build_instanced_device_scene)
+    from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
+
+    host = load_glb(tfix.triangle_scene_glb())
+    with pytest.raises(ValueError, match="intersector"):
+        build_device_scene(host, device="cpu", intersector="embree")
+    ih = load_glb_instanced(tfix.instanced_scene_glb(r=4))
+    with pytest.raises(ValueError, match="lbvh"):
+        build_instanced_device_scene(ih, device="cpu", intersector="lbvh")
+
+
+@pytest.mark.parametrize("engine", ["wavefront", "megakernel"])
+def test_lbvh_render_matches_jax_lbvh(engine):
+    """Port LBVH against JAX LBVH, cube 64x64, 4 spp, depth 6: the
+    flip-tolerant gate, and per-bounce tallies within max(16, 0.5 %)."""
+    from sycl_ray_tracer_tpu.models import megakernel as jmk
+    from sycl_ray_tracer_tpu.models import wavefront as jwf
+    from sycl_ray_tracer_torch.models import megakernel as mk
+
+    from tests import scenes
+
+    kw = dict(width=64, height=64, spp=4, max_depth=6, seed=0)
+    scene, _, cam = tfix.load_pair(tfix.cube_scene_glb(), 64, 64,
+                                   device="cpu", intersector="lbvh")
+    js, _, jcam = scenes.load_pair(scenes.cube_scene_glb(), 64, 64,
+                                   intersector="lbvh")
+    render, jrender = {"wavefront": (render_wavefront, jwf.render_wavefront),
+                       "megakernel": (mk.render_megakernel,
+                                      jmk.render_megakernel)}[engine]
+    steps = traverse.steps
+    img, rays = render(scene, cam, **kw)
+    assert traverse.steps > steps
+    jimg, jrays = jrender(js, jcam, **kw)
+    img, rays = img.numpy(), rays.numpy()
+    check_oracle_match(img, np.asarray(jimg))
+    jrays = np.asarray(jrays).astype(np.int64)
+    assert (np.abs(rays - jrays) <= np.maximum(16, 0.005 * jrays)).all(), (
+        rays, jrays)
+    assert rays[0] == 64 * 64 * 4 and rays[3] > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _gate_frames():
+    """The port's own Sponza-scale gate frames: sponza_like_glb(scale=1),
+    64x48, 64 spp, depth 6, wavefront, sharing only the estimator, on
+    three trees: the SAH BVH8 (the default at leaf size 8, traverse8's
+    plain version here), the Morton heap of leaf size 4 (traverse1's
+    plain version, MT leaves) and the binary LBVH (leaf size 8).
+    {name: (image, tallies)}."""
+    glb = _sponza1()
+    kw = dict(width=64, height=48, spp=64, max_depth=6, seed=0)
+    out = {}
+    for name, k, isect in (("sah", 8, "auto"), ("heap", 4, "auto"),
+                           ("lbvh", 8, "lbvh")):
+        scene, host, cam = tfix.load_pair(glb, 64, 48, leaf_size=k,
+                                          device="cpu", intersector=isect)
+        assert host.num_triangles > 20_000
+        t0 = time.perf_counter()
+        img, rays = render_wavefront(scene, cam, **kw)
+        print(f"sponza gate {name}: {time.perf_counter() - t0:.1f} s")
+        out[name] = (img.numpy(), rays.numpy())
+    return out
+
+
+def _gate_numbers(a, b):
+    """(untrimmed RMSE, p99 of the per-pixel max |diff|, relative
+    difference of the total rays) of two gate frames."""
+    (ia, ra), (ib, rb) = a, b
+    err = float(np.sqrt(np.mean((ia.astype(np.float64) - ib) ** 2)))
+    p99 = float(np.percentile(np.abs(ia - ib).max(axis=-1), 99))
+    return err, p99, abs(int(ra.sum()) - int(rb.sum())) / int(ra.sum())
+
+
+def test_sponza_gate_lbvh_against_heap():
+    """tests/test_render.py:149-183 as the JAX package runs it on the
+    CPU, where its default walk is the Morton-heap BVH8 with MT leaves:
+    two Morton-order trees with MT leaves, here the heap's plain walk
+    (leaf size 4) and the LBVH; untrimmed RMSE < 2e-3, p99 < 0.02, total
+    rays within 1 %, an image that is not constant. These two walks
+    break bit-equal-t ties between coplanar triangles alike; the heap's
+    kernel walks depth-first and breaks them otherwise, so
+    chip_smoke.py holds the card's frames to the 4e-3 ceiling."""
+    frames = _gate_frames()
+    err, p99, dr = _gate_numbers(frames["heap"], frames["lbvh"])
+    print(f"sponza gate heap vs LBVH: untrimmed RMSE {err:.4g}, p99 "
+          f"{p99:.4g}, rays {dr:.5f}")
+    assert err < RMSE_GATE and p99 < P99_GATE and dr < 0.01
+    assert frames["lbvh"][0].std() > 0.05
+
+
+def test_sponza_gate_lbvh_against_sah():
+    """The default tree (SAH, Woop leaves) against the LBVH. The scene
+    has coplanar triangles of different materials, and the SAH walk
+    keeps the first of two hits at a bit-equal t in its own order, so
+    its paths part from the LBVH's at those ties: the untrimmed RMSE is
+    held to the ceiling of tests/test_render.py (4e-3), with the other
+    thresholds of the gate: p99 < 0.02, total rays within 1 %, flips
+    (max |diff| > 0.05) under 0.5 % of pixels."""
+    frames = _gate_frames()
+    err, p99, dr = _gate_numbers(frames["sah"], frames["lbvh"])
+    flips = (np.abs(frames["sah"][0] - frames["lbvh"][0]).max(-1) > 0.05)
+    print(f"sponza gate SAH vs LBVH: untrimmed RMSE {err:.4g}, p99 "
+          f"{p99:.4g}, rays {dr:.5f}, flips {flips.mean():.5f}")
+    assert err < 4e-3 and p99 < P99_GATE and dr < 0.01
+    assert flips.mean() < 5e-3
+    assert frames["sah"][0].std() > 0.05
+
+
+def test_walks_differ_only_at_bit_equal_ties():
+    """Why the gate frames part: on the primary rays of 8 samples of the
+    64x48 gate frame and their first two bounces, the SAH tree (with
+    the MT rows of traverse5's MT mode, so that the leaf arithmetic is
+    the LBVH's) and the heap's plain walk each disagree with the LBVH
+    only on rays that hit two triangles at a bit-equal t, the first of
+    which each walk keeps in its own order."""
+    from sycl_ray_tracer_torch.ops import sah
+    from sycl_ray_tracer_torch.ops.traverse5 import traverse5_plain
+
+    glb = _sponza1()
+    s_sah, host, cam = tfix.load_pair(glb, 64, 48, leaf_size=8,
+                                      device="cpu")
+    s_heap, _, _ = tfix.load_pair(glb, 64, 48, leaf_size=4, device="cpu")
+    s_lbvh, _, _ = tfix.load_pair(glb, 64, 48, leaf_size=8, device="cpu",
+                                  intersector="lbvh")
+    mt = torch.from_numpy(sah.slot_rows(sah.leaf_rows(
+        host.tri_v, sah.build_sah(host.tri_v, 8).order, 8), 8))
+    mat = s_lbvh.shade_tbl[:, 15]
+    q, q_id = _gen_queue(cam, 0, 0, width=64, height=48, waves=8)
+    for bounce in range(3):
+        o, d = V3(*q[0:3]), V3(*q[3:6])
+        ref = intersect_scene(s_lbvh, o, d)
+        h = traverse5_plain(s_sah.bvh_nodes, s_sah.bvh_child_ids, mt,
+                            s_sah.sah_ni, o, d)
+        h = h._replace(tri=torch.where(
+            h.tri >= 0, s_sah.bvh_remap[h.tri.clamp(min=0).long()], -1))
+        counts = []
+        for hit in (h, intersect_scene(s_heap, o, d)):
+            assert torch.equal(hit.tri >= 0, ref.tri >= 0)
+            differ = hit.tri.long() != ref.tri.long()
+            assert torch.equal(hit.t[differ], ref.t[differ])
+            other = mat[hit.tri[differ].long()] != mat[ref.tri[differ].long()]
+            counts.append((int(differ.sum()), int(other.sum())))
+        print(f"bounce {bounce}, {o.x.shape[0]} rays: ids differing from "
+              f"the LBVH at a bit-equal t (of which on another material): "
+              f"SAH tree with MT rows {counts[0]}, heap plain {counts[1]}")
+        q, q_id = _bounce(s_lbvh, q, q_id, bounce, torch.zeros((64 * 48, 3)),
+                          0, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _deep_scene():
+    host = load_glb(sponza_like_glb(scale=3))
+    scene = build_device_scene(host, device="cpu")
+    return host, scene
+
+
+def test_deep_tree_builds():
+    """sponza_like_glb(scale=3) has SAH depth 10 (71 stack entries); the
+    kernels' stack covers depth 18."""
+    host, scene = _deep_scene()
+    assert host.num_triangles > 700_000
+    assert scene.bvh_depth >= 10
+    assert 7 * scene.bvh_depth + 1 > 64
+    assert 7 * 18 + 1 <= kernels.STACK
+
+
+def test_deep_tree_host_walk_equals_plain():
+    """The g++ build of traverse8's walk against plain on 4,096 rays of
+    the depth-10 tree: 2,048 primary and 2,048 first-bounce rays."""
+    from sycl_ray_tracer_torch.models.camera import make_camera
+    from sycl_ray_tracer_torch.ops.traverse8 import traverse8_plain
+
+    host, scene = _deep_scene()
+    cam = make_camera(64, 32, host.camera_position, host.camera_direction,
+                      host.camera_focal_length, device="cpu")
+    tables = [scene.bvh_nodes, scene.bvh_child_ids, scene.bvh_woop,
+              scene.sah_ni]
+    for rays in pinned_rays(scene, cam).values():
+        o, d = V3(*rays[0:3]), V3(*rays[3:6])
+        host_hit = kernels.run_host("traverse8", tables, o, d)
+        plain = traverse8_plain(*tables, o, d)
+        assert (plain.tri >= 0).float().mean() > 0.5
+        host_vs_plain(host_hit, plain)
+
+
+@pytest.mark.parametrize("depth,ok", [(9, True), (10, True), (18, True),
+                                      (19, False)])
+def test_stack_limit(depth, ok):
+    if ok:
+        check_stack(depth)
+    else:
+        with pytest.raises(ValueError, match="stack of 134 entries"):
+            check_stack(depth)

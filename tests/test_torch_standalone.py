@@ -32,6 +32,11 @@ _MAIN_PATH_MODULES = [
     "sycl_ray_tracer_torch.ops.traverse8",
     "sycl_ray_tracer_torch.ops.traverse5",
     "sycl_ray_tracer_torch.ops.traverse1",
+    "sycl_ray_tracer_torch.ops.traverse",
+    "sycl_ray_tracer_torch.ops.lbvh",
+    "sycl_ray_tracer_torch.ops.intersect",
+    "sycl_ray_tracer_torch.ops.sampling",
+    "sycl_ray_tracer_torch.models.oracle",
     "sycl_ray_tracer_torch.models.camera",
     "sycl_ray_tracer_torch.models.scene",
     "sycl_ray_tracer_torch.models.instanced",
