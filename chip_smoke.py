@@ -1,7 +1,8 @@
 """Drive the PyTorch port's paths once on one CUDA card, check every
 kernel on them against its plain PyTorch version, and report.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # one card: the phases below
+    python3 chip_smoke.py --cards   # several cards: --devices across them
 
 Phases (any failure raises and exits non-zero):
 1. device: CUDA is required; prints the card's name and power limit;
@@ -26,7 +27,9 @@ Phases (any failure raises and exits non-zero):
 5. traverse5 in MT mode on the same scene (rows from sah.leaf_rows) and
    the same 65,536 + 65,536 rays: against its plain version with the
    rules of 3, and against traverse8 (Woop vs MT: hit/miss agreement
-   >= 0.999, 99th percentile of relative t difference < 5e-4);
+   >= 0.999, 99th percentile of relative t difference < 5e-4); then
+   the times of kernel and plain at the 1M primary and 1M bounce rays
+   of 4, and the bound of the bounce launch as in 4 (MT leaves);
 6. the cube fixture rendered on cuda and on the cpu through the same
    port, compared with the flip-tolerant image gate;
 7. the baked headline render: sponza_proc scale 2, 1024x1024, 64 spp,
@@ -99,8 +102,32 @@ Phases (any failure raises and exits non-zero):
    cube (96x96, 4 spp, depth 8), the dielectric (64x64, 16 spp, depth
    12, with and without russian roulette) and the textured quad (64x64,
    4 spp, depth 4), each with the flip-tolerant gate, and the
-   megakernel's tallies against the wavefront's.
-Phases 4c and 17-19 print their seconds.
+   megakernel's tallies against the wavefront's;
+20. ingest parity without Pillow: a subprocess that refuses every
+   import of PIL loads utils/fixtures.py:resized_textures_glb (textures
+   of 256x256, 1024x1024 and 300x700 resized to 512x512) at global
+   scale (2, 0.5, 3), baked and two-level; the decoded textures' sha256
+   equal the digests the CPU tests pinned against Pillow, and both
+   forms render on the card with both engines within the gate of 19
+   against the numpy oracle; prints whether Pillow is installed here;
+21. sharded rendering on the one card (parallel/mesh.py): two ranks
+   share cuda:0 over gloo (NCCL refuses two ranks on one card) and
+   render, each case against its single-device frame in this process
+   (RMSE < 1e-6, per-bounce tallies equal): the headline config through
+   the wavefront on meshes 2x1 and 1x2 and through the megakernel at
+   2x1 (against the frames of 7 and 8), and instanced_proc
+   --shared-instances at 512x512, 16 spp, depth 8, at 2x1; each sharded
+   frame's seconds beside the single frame's. Each rank counts the
+   launches of its timed frame (render_jobs, timed as the CLI times a
+   frame): every rank launched the path's kernel (traverse8, traverse5
+   for instanced_proc) once per bounce of each of its waves, and no
+   other kernel. Before those, in a subprocess beside those of 20 and
+   22, one rank over NCCL renders the cube at 96x96, 4 spp, depth 8
+   with each engine, bit-equal to the single render wherever two single
+   renders agree bit for bit, with the same launch check;
+22. the CLI on the card: --devices 2 exits non-zero naming the device
+   count, and --devices 1 --scale 2 2 2 prints the three contract lines.
+Phases 4c and 17-22 print their seconds.
 
 Every headline frame also reports its kernel's time within the frame,
 from CUDA events around each launch.
@@ -124,6 +151,7 @@ import numpy as np
 import torch
 
 PKG = "sycl_ray_tracer_torch"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {
     "traverse8": dict(source=f"{PKG}/csrc/traverse8.cu",
                       replaces="sycl_ray_tracer_tpu/ops/traverse_pallas8.py"
@@ -168,6 +196,19 @@ WAVE_LANES = 8 << 20
 LIVE_SHARES = (1.0, 0.44, 0.18)
 # the headline frame
 HEADLINE = dict(width=1024, height=1024, spp=64, max_depth=10, seed=0)
+# refuses every import of PIL, as on a machine without Pillow (the hook of
+# tests/test_torch_standalone.py)
+NO_PIL = """
+import sys
+class _NoPil:
+    def find_spec(self, name, path=None, target=None):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("PIL refused")
+        return None
+sys.meta_path.insert(0, _NoPil())
+"""
+# the global scale of phase 20
+INGEST_SCALE = (2.0, 0.5, 3.0)
 
 
 def log(msg: str) -> None:
@@ -255,11 +296,12 @@ def make_rays(scene, cam, width: int, height: int, n: int):
     samples per pixel, in the queue's coherence order."""
     from sycl_ray_tracer_torch.models import wavefront as wf
 
-    q, _ = wf._gen_queue(cam, 7, 0, width=width, height=height, waves=1)
+    pixels = wf.frame_pixels(width, height, cam.center.device)
+    q, _ = wf._gen_queue(cam, 7, 0, pixels=pixels, waves=1)
     primary = _rays_from_queue(q, n)
-    q, q_id = wf._gen_queue(cam, 7, 0, width=width, height=height, waves=2)
+    q, q_id = wf._gen_queue(cam, 7, 0, pixels=pixels, waves=2)
     acc = torch.zeros((width * height, 3), device=q.device)
-    q, _ = wf._bounce(scene, q, q_id, 0, acc, 7, 0)
+    q, _ = wf._bounce(scene, q, q_id, 0, acc, 7, 0, pixels[2])
     if q.shape[1] < n:
         raise RuntimeError(f"only {q.shape[1]} bounce rays survived")
     return primary, _rays_from_queue(q, n)
@@ -428,17 +470,18 @@ def table_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(name: str, scene, kern, o, d, label: str):
+def bound(name: str, scene, kern, o, d, label: str, mt=None):
     """(bound_ms, bound_by) of one launch of kernel `name` on these rays:
     the larger of the bytes it must move (rays in and out, tables read
     once) over the HBM rate, and the f32 operations of the kernel's own
     walk on these rays over the f32 instruction rate. The walk's child
     boxes and leaves are counted by its host build (csrc/walk_host.cpp,
-    g++), whose hits must equal the kernel's bit for bit."""
+    g++), whose hits must equal the kernel's bit for bit. traverse5
+    takes `mt` as kernel_tables does (MT mode, MT leaves)."""
     from sycl_ray_tracer_torch.ops import kernels
     from sycl_ray_tracer_torch.ops.vec import V3
 
-    tables = kernel_tables(name, scene)
+    tables = kernel_tables(name, scene, mt)
     tensors = [x for x in tables if isinstance(x, torch.Tensor)]
     counts = torch.zeros(2, dtype=torch.int64)
     t0 = time.perf_counter()
@@ -459,7 +502,8 @@ def bound(name: str, scene, kern, o, d, label: str):
     if name == "traverse1":
         ops_leaf = scene.leaf_size * OPS_MT_SLOT
     else:
-        ops_leaf = OPS_LEAF[name + ("-itf" if name == "traverse5" else "")]
+        ops_leaf = OPS_LEAF[name + ("-itf" if name == "traverse5"
+                                    and mt is None else "")]
     ops = boxes * OPS_BOX + leaves * ops_leaf
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_INSTR_PER_S
     log(f"[bound] {label}: the kernel's walk slab-tests {boxes / n:.2f} "
@@ -637,11 +681,13 @@ def sah_mt_rows(host, device) -> torch.Tensor:
         sah.leaf_rows(host.tri_v, order, 8), 8)).to(device)
 
 
-def phase_mt_mode(scene, host, rays: dict) -> float:
+def phase_mt_mode(scene, host, rays: dict, rays1m: dict, smi: str) -> float:
     """traverse5 in MT mode on the baked SAH tree: against its plain
-    version, and against traverse8 (Woop) on the same rays."""
-    kern, plain = kernel_pair("traverse5", scene,
-                              mt=sah_mt_rows(host, scene.bvh_nodes.device))
+    version, and against traverse8 (Woop) on the same rays; then its
+    times against plain at the 1M rays of `rays1m`, and the bound of the
+    1M bounce launch."""
+    mt = sah_mt_rows(host, scene.bvh_nodes.device)
+    kern, plain = kernel_pair("traverse5", scene, mt=mt)
     k8, _ = kernel_pair("traverse8", scene)
     err = 0.0
     for label, (o, d) in rays.items():
@@ -658,6 +704,11 @@ def phase_mt_mode(scene, host, rays: dict) -> float:
         if agree < 0.999 or p99 >= 5e-4:
             raise AssertionError(f"traverse5 MT vs traverse8 {label}: "
                                  "Woop and MT disagree")
+    phase_times(kern, plain, rays1m, smi, "traverse5 MT sponza_proc")
+    ms, by = bound("traverse5", scene, kern, *rays1m["bounce"],
+                   "traverse5 MT sponza_proc bounce 1M", mt=mt)
+    log(f"[bound] traverse5 MT sponza_proc bounce 1M: {ms:.4f} ms, bound "
+        f"by {by}")
     return err
 
 
@@ -1032,13 +1083,355 @@ def phase_oracle_gate(smi: str) -> None:
         check_tallies(mrays.numpy(), wrays.numpy(),
                       f"{name} megakernel vs wavefront")
 
+def ingest_child() -> None:
+    """Phase 20's body, in a subprocess that refuses PIL: the resized
+    textures' digests, baked and two-level at INGEST_SCALE, and both
+    forms rendered on the card with both engines against the oracle."""
+    import hashlib
+
+    from sycl_ray_tracer_torch.models.instanced import (
+        build_instanced_device_scene)
+    from sycl_ray_tracer_torch.models.megakernel import render_megakernel
+    from sycl_ray_tracer_torch.models.oracle import render_oracle
+    from sycl_ray_tracer_torch.models.scene import build_device_scene
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.utils import fixtures
+    from sycl_ray_tracer_torch.utils.gltf import load_glb
+    from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
+
+    cuda = torch.device("cuda")
+    glb = fixtures.resized_textures_glb()
+    t0 = time.perf_counter()
+    host = load_glb(glb, INGEST_SCALE)
+    ih = load_glb_instanced(glb, INGEST_SCALE)
+    log(f"[ingest] resized_textures_glb ({fixtures.RESIZED_TEXTURES}) at "
+        f"global scale {INGEST_SCALE}, baked and two-level, decoded without "
+        f"Pillow in {time.perf_counter() - t0:.2f} s")
+    for label, h in (("baked", host), ("two-level", ih)):
+        got = tuple(hashlib.sha256(t.tobytes()).hexdigest()
+                    for t in h.textures)
+        log(f"[ingest] {label} texture sha256 {[g[:12] for g in got]}: "
+            f"{'equal to' if got == fixtures.RESIZED_TEXTURES_SHA256 else 'NOT'}"
+            f" the digests pinned against Pillow")
+        if got != fixtures.RESIZED_TEXTURES_SHA256:
+            raise AssertionError(f"{label}: resized textures differ from "
+                                 "the Pillow path's")
+    if not np.array_equal(ih.bake().tri_v, host.tri_v):
+        raise AssertionError("the scaled two-level scene bakes to another "
+                             "geometry than the scaled baked one")
+    kw = dict(width=64, height=64, spp=8, max_depth=4, seed=0)
+    cam = camera(host, 64, 64, cuda)
+    oracle = render_oracle(host, cam, **kw)
+    for label, scene in (
+            ("baked", build_device_scene(host, device=cuda)),
+            ("two-level", build_instanced_device_scene(ih, device=cuda))):
+        for engine, render in (("wavefront", render_wavefront),
+                               ("megakernel", render_megakernel)):
+            img = render(scene, cam, **kw)[0].cpu().numpy()
+            check_images(img, oracle, f"resized textures at scale "
+                         f"{INGEST_SCALE} {label} {engine} 64x64 spp8 d4 vs "
+                         "oracle")
+            if img.mean() < 0.01:
+                raise AssertionError("the resized-texture frame is black")
+    if "PIL" in sys.modules:
+        raise AssertionError("PIL was imported")
+
+
+def phase_side_processes() -> None:
+    """Phases 20, 21's NCCL case and 22, side by side in subprocesses:
+    ingest_child, nccl_child and the CLI's two runs on the card. Prints
+    whether Pillow is installed on this machine."""
+    import importlib.metadata
+    import importlib.util
+
+    if importlib.util.find_spec("PIL") is None:
+        log("[ingest] Pillow on this machine: not installed")
+    else:
+        log("[ingest] Pillow on this machine: installed, version "
+            f"{importlib.metadata.version('Pillow')}")
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    cli = [sys.executable, "-m", PKG, "cube", "-s", "4", "-d", "8",
+           "--width", "96", "--height", "96"]
+    cmds = {
+        "ingest": [sys.executable, "-c",
+                   NO_PIL + "import chip_smoke\nchip_smoke.ingest_child()\n"],
+        "nccl": [sys.executable, "-c",
+                 "import chip_smoke\nchip_smoke.nccl_child()\n"],
+        "devices2": cli + ["--devices", "2", "-o",
+                           os.path.join(work, "devices2.png")],
+        "scale": cli + ["--devices", "1", "--scale", "2", "2", "2", "-o",
+                        os.path.join(work, "scale.png")],
+    }
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, c in cmds.items()}
+    out = {}
+    try:
+        for k, p in procs.items():
+            so, se = p.communicate(timeout=300)
+            out[k] = (p.returncode, so, se)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k in ("ingest", "nccl"):
+        rc, so, se = out[k]
+        for line in so.splitlines():
+            log(line)
+        if rc != 0:
+            raise AssertionError(f"the {k} subprocess failed:\n{se[-4000:]}")
+    rc, so, se = out["devices2"]
+    n = torch.cuda.device_count()
+    last = (se.strip().splitlines() or [""])[-1]
+    log(f"[cli] --devices 2 on {n} card(s): exit {rc}, {last}")
+    if rc == 0 or "Time measured" in so or f"this machine has {n}" not in se:
+        raise AssertionError("--devices 2 on one card did not refuse with "
+                             "the device count")
+    rc, so, se = out["scale"]
+    lines = so.splitlines()
+    i = next((k for k, ln in enumerate(lines)
+              if ln.startswith("Time measured")), None)
+    log(f"[cli] --devices 1 --scale 2 2 2 cube 96x96 spp4 d8: exit {rc}; "
+        + "; ".join(lines[i:i + 3] if i is not None else lines[-3:]))
+    if not (rc == 0 and i is not None
+            and re.fullmatch(r"Time measured: \d+\.\d{6} seconds", lines[i])
+            and re.fullmatch(r"Total rays: \d+", lines[i + 1])
+            and re.fullmatch(r"Rays/sec: \d+\.\d\dM", lines[i + 2])):
+        raise AssertionError(f"the CLI with --scale failed:\n{se[-4000:]}")
+
+
+def phase_sharded(smi: str, sponza_glb: bytes, refs: dict) -> None:
+    """Phase 21 but its NCCL case: parallel/mesh.py with two gloo ranks
+    on the one card. refs holds the single-device frames of 7 and 8
+    ({"wavefront": ..., "megakernel": ...}, each (image, tallies,
+    seconds)); the instanced one is rendered here."""
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.utils.cli import resolve_scene_bytes
+
+    cuda = torch.device("cuda")
+    ikw = dict(width=512, height=512, spp=16, max_depth=8, seed=0)
+    scene, cam, _ = load(resolve_scene_bytes("instanced_proc"), 512, 512,
+                         cuda, shared_instances=True)
+    render_wavefront(scene, cam, **dict(ikw, spp=1, seed=1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, rays = render_wavefront(scene, cam, **ikw)
+    torch.cuda.synchronize()
+    refs["instanced"] = (img.cpu().numpy(), rays.numpy(),
+                         time.perf_counter() - t0)
+    del scene, cam, img
+    torch.cuda.empty_cache()
+
+    cases = [
+        ("sponza_proc 1024x1024 spp64 d10 wavefront, mesh 2x1", "wavefront",
+         "traverse8", dict(scene=0, dp=2, sp=1, renderer="wavefront",
+                           **HEADLINE)),
+        ("sponza_proc 1024x1024 spp64 d10 wavefront, mesh 1x2", "wavefront",
+         "traverse8", dict(scene=0, dp=1, sp=2, renderer="wavefront",
+                           **HEADLINE)),
+        ("sponza_proc 1024x1024 spp64 d10 megakernel, mesh 2x1",
+         "megakernel", "traverse8",
+         dict(scene=0, dp=2, sp=1, renderer="megakernel", **HEADLINE)),
+        ("instanced_proc --shared-instances 512x512 spp16 d8 wavefront, "
+         "mesh 2x1", "instanced", "traverse5",
+         dict(scene=1, dp=2, sp=1, renderer="wavefront", **ikw)),
+    ]
+    scenes = [dict(glb=sponza_glb),
+              dict(glb="instanced_proc", shared_instances=True)]
+    run_sharded(smi, "gloo", ["cuda:0", "cuda:0"], scenes, cases, refs)
+
+
+def render_jobs(rank: int, device: torch.device, scenes: list, jobs: list,
+                out_path: str) -> None:
+    """A rank's body for a batch of sharded renders (parallel/mesh.py:
+    spawn's fn), each frame timed as the CLI times one (utils/cli.py:
+    timed_frame).
+
+    scenes: dicts of glb (bytes, or a procedural name of the CLI) and
+    optionally leaf_size (8) and shared_instances (False); each is
+    built once in every rank. jobs: dicts of scene (an index into
+    scenes), dp, sp, renderer and the render arguments (width, height,
+    spp, max_depth, seed, rr), and optionally warmup (False): an untimed
+    frame of dp samples with seed + 1 first. Every kernel's launch count
+    is set to 0 just before the timed frame and read just after it.
+    Rank 0 saves [(image on the CPU, tallies, seconds, [{kernel:
+    launches} of each rank])] with torch.save to out_path."""
+    import torch.distributed as dist
+
+    from sycl_ray_tracer_torch.models.camera import make_camera
+    from sycl_ray_tracer_torch.parallel.mesh import make_mesh, render_sharded
+    from sycl_ray_tracer_torch.utils.cli import (load_scene,
+                                                 resolve_scene_bytes,
+                                                 timed_frame)
+
+    kerns = path_kernels()
+    built = []
+    for spec in scenes:
+        glb = spec["glb"]
+        if isinstance(glb, str):
+            glb = resolve_scene_bytes(glb)
+        built.append(load_scene(glb, device, spec.get("shared_instances",
+                                                      False),
+                                leaf_size=spec.get("leaf_size", 8),
+                                log=lambda *a: None))
+    out = []
+    for job in jobs:
+        job = dict(job)
+        scene, host = built[job.pop("scene")]
+        mesh = make_mesh(job.pop("dp"), job.pop("sp"))
+        cam = make_camera(job["width"], job["height"], host.camera_position,
+                          host.camera_direction, host.camera_focal_length,
+                          device=device)
+        if job.pop("warmup", False):
+            render_sharded(scene, cam, mesh=mesh,
+                           **dict(job, spp=mesh.dp, seed=job["seed"] + 1))
+        for k in kerns:
+            k.launches = 0
+        (img, rays), secs = timed_frame(
+            lambda: render_sharded(scene, cam, mesh=mesh, **job), device)
+        launches = [None] * dist.get_world_size()
+        dist.all_gather_object(launches,
+                               {k.__name__: k.launches for k in kerns})
+        out.append((img.cpu(), rays, secs, launches))
+    if rank == 0:
+        tmp = out_path + ".part"
+        torch.save(out, tmp)
+        os.replace(tmp, out_path)
+
+
+def path_kernels() -> tuple:
+    """The wrappers of the three kernels, each counting its launches."""
+    from sycl_ray_tracer_torch.ops.traverse1 import traverse1
+    from sycl_ray_tracer_torch.ops.traverse5 import traverse5
+    from sycl_ray_tracer_torch.ops.traverse8 import traverse8
+
+    return traverse8, traverse5, traverse1
+
+
+def check_rank_launches(label: str, kernel: str, job: dict, rays,
+                        launches: list) -> str:
+    """Every rank of a sharded frame (job, as render_jobs takes it, with
+    the frame's reduced per-bounce tallies `rays`) launched `kernel`
+    once per bounce of each of its waves, and no other kernel: the ranks
+    went through the hand-written kernels. Returns the counts for the
+    log."""
+    from sycl_ray_tracer_torch.models.megakernel import WAVE_RAYS
+    from sycl_ray_tracer_torch.models.wavefront import _wave_samples
+
+    spp = job["spp"] // job["dp"]
+    r = job["width"] * job["height"] // job["sp"]
+    per_wave = (_wave_samples(spp, r) if job["renderer"] == "wavefront"
+                else max(1, min(spp, WAVE_RAYS // r)))
+    want = -(-spp // per_wave) * int((np.asarray(rays) > 0).sum())
+    for rank, counts in enumerate(launches):
+        others = {k: n for k, n in counts.items() if k != kernel and n}
+        if counts[kernel] != want or others:
+            raise AssertionError(
+                f"{label}: rank {rank} launched {kernel} {counts[kernel]} "
+                f"times, not {want}; other kernels {others}")
+    return (f"{kernel} launches per rank "
+            f"{[c[kernel] for c in launches]} (one per bounce of each "
+            f"wave), no other kernel")
+
+
+def run_sharded(smi: str, backend: str, devices: list, scenes: list,
+                cases: list, refs: dict) -> None:
+    """Spawn one rank per entry of `devices` (render_jobs, each job after
+    a warm-up frame) and hold each case (label, key of refs, kernel,
+    job) against refs[key], the single-device (image, tallies, seconds):
+    RMSE < 1e-6 and equal tallies, and every rank launched the kernel
+    once per bounce of each of its waves and no other kernel."""
+    from sycl_ray_tracer_torch.parallel.mesh import spawn
+
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    path, store = (os.path.join(work, f"{backend}{len(devices)}{f}")
+                   for f in (".pt", ".store"))
+    for f in (path, store):
+        if os.path.exists(f):
+            os.remove(f)
+    t0 = time.perf_counter()
+    spawn(render_jobs, len(devices), backend, devices, f"file://{store}",
+          args=(scenes, [dict(c[3], warmup=True) for c in cases], path))
+    log(f"[sharded] {len(devices)} {backend} ranks on {', '.join(devices)}: "
+        f"spawned, built their scenes and rendered {len(cases)} frames in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for (label, key, kernel, job), (img, rays, secs, launches) in zip(
+            cases, torch.load(path)):
+        ref_img, ref_rays, ref_secs = refs[key]
+        err = rmse(img.numpy(), ref_img)
+        same = bool((rays.numpy() == ref_rays).all())
+        log(f"[sharded] {label} on {smi}: {secs:.4f} s "
+            f"({int(rays.sum()) / secs / 1e6:.2f} Mrays/s), one device "
+            f"{ref_secs:.4f} s; RMSE {err:.3g} against it, tallies "
+            f"{'equal' if same else 'DIFFER'} ({int(rays.sum())} rays)")
+        if not (err < 1e-6 and same):
+            raise AssertionError(f"{label}: the sharded frame differs from "
+                                 "one device's")
+        log(f"[sharded] {label}: "
+            + check_rank_launches(label, kernel, job, rays, launches))
+
+
+def nccl_child() -> None:
+    """Phase 21's NCCL case, in a subprocess: one rank over NCCL renders
+    the cube at 96x96, 4 spp, depth 8 with each engine; each frame must
+    equal this process's single render bit for bit wherever two single
+    renders agree bit for bit, and to 1e-6 RMSE with equal tallies; the
+    rank launched traverse8 once per bounce of each wave."""
+    from sycl_ray_tracer_torch.models.megakernel import render_megakernel
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.parallel.mesh import spawn
+    from sycl_ray_tracer_torch.utils.fixtures import cube_scene_glb
+
+    cuda = torch.device("cuda")
+    work = os.path.join(ROOT, "build", "smoke")
+    ckw = dict(width=96, height=96, spp=4, max_depth=8, seed=0)
+    scene, cam, _ = load(cube_scene_glb(), 96, 96, cuda)
+    engines = (("wavefront", render_wavefront),
+               ("megakernel", render_megakernel))
+    single = {}
+    for name, render in engines:
+        a, b = (render(scene, cam, **ckw) for _ in range(2))
+        single[name] = (a[0].cpu().numpy(), a[1].numpy(),
+                        torch.equal(a[0], b[0]))
+    path, store = (os.path.join(work, f) for f in ("nccl1.pt", "store1"))
+    for f in (path, store):
+        if os.path.exists(f):
+            os.remove(f)
+    jobs = [dict(scene=0, dp=1, sp=1, renderer=name, **ckw)
+            for name, _ in engines]
+    spawn(render_jobs, 1, "nccl", ["cuda:0"], f"file://{store}",
+          args=([dict(glb="cube")], jobs, path))
+    for (name, _), job, (img, rays, _, launches) in zip(engines, jobs,
+                                                        torch.load(path)):
+        ref, ref_rays, repeats = single[name]
+        equal = np.array_equal(img.numpy(), ref)
+        err = rmse(img.numpy(), ref)
+        same = bool((rays.numpy() == ref_rays).all())
+        log(f"[sharded] cube 96x96 spp4 d8 {name}, one rank over NCCL: "
+            f"{'bit-equal to' if equal else f'RMSE {err:.3g} against'} the "
+            f"single render (two single renders "
+            f"{'agree' if repeats else 'differ'} bit for bit), tallies "
+            f"{'equal' if same else 'DIFFER'}")
+        if not ((equal or not repeats) and err < 1e-6 and same):
+            raise AssertionError(f"cube {name}: one NCCL rank differs from "
+                                 "the single render")
+        log(f"[sharded] cube {name}, one rank over NCCL: "
+            + check_rank_launches(f"cube {name}", "traverse8", job, rays,
+                                  launches))
+
 
 def phase_headline(render, scene, cam, smi: str, label: str, kernel,
                    absent, waves: int = 1):
     """render(...) at 1024x1024, 64 spp, depth 10 after a 1-spp warm-up;
     checks that `kernel` launched once per bounce of each of the frame's
     `waves` waves and no kernel of `absent` ran; returns (launches of
-    `kernel`, per-bounce tallies). CUDA events around each kernel launch
+    `kernel`, per-bounce tallies, the image on the host, the frame's
+    seconds). CUDA events around each kernel launch
     (ops/kernels.py:launch) give the kernel's time within the frame."""
     from sycl_ray_tracer_torch.ops import kernels
 
@@ -1096,7 +1489,7 @@ def phase_headline(render, scene, cam, smi: str, label: str, kernel,
     if rays[0] != 1024 * 1024 * 64:
         raise AssertionError("ray tallies inconsistent")
     log(f"[headline] image mean {img.mean():.4f}, max {img.max():.4f}")
-    return launches, rays.numpy()
+    return launches, rays.numpy(), img, secs
 
 
 def main() -> int:
@@ -1118,8 +1511,8 @@ def main() -> int:
 
     # ---- the baked main path (sponza_proc scale 2, traverse8) ----
     t0 = time.perf_counter()
-    scene, cam, host = load(resolve_scene_bytes("sponza_proc"), 1024, 1024,
-                            cuda)
+    sponza_glb = resolve_scene_bytes("sponza_proc")
+    scene, cam, host = load(sponza_glb, 1024, 1024, cuda)
     log(f"[scene] sponza_proc scale 2: {scene.num_triangles} triangles, "
         f"NI {scene.sah_ni}, depth {scene.bvh_depth}, built in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1139,34 +1532,35 @@ def main() -> int:
     phase_masked(kern, plain, *bounce1m, smi, "traverse8 sponza_proc bounce")
     timed_phase("LBVH against traverse8", phase_lbvh_vs_sah, scene, host,
                 *bounce1m, smi)
-    del prim1m, bounce1m
-    err5 = phase_mt_mode(scene, host, {"primary": prim, "bounce": bounce})
-    del prim, bounce
+    err5 = phase_mt_mode(scene, host, {"primary": prim, "bounce": bounce},
+                         {"primary": prim1m, "bounce": bounce1m}, smi)
+    del prim, bounce, prim1m, bounce1m
 
     phase_cross_check()
-    launches8, rays8 = phase_headline(render_wavefront, scene, cam, smi,
-                                      "sponza_proc scale 2", traverse8,
-                                      (traverse5, traverse1))
+    launches8, rays8, img8, secs8 = phase_headline(
+        render_wavefront, scene, cam, smi, "sponza_proc scale 2", traverse8,
+        (traverse5, traverse1))
     report["traverse8"] = dict(launches=launches8, max_abs_err=err8,
                                times=times["bounce"], bound=b8)
     del kern, plain
 
     # ---- the megakernel on the baked main path (traverse8) ----
     per_wave = max(1, min(64, mk.WAVE_RAYS // (1024 * 1024)))
-    _, mk_rays = phase_headline(
+    _, mk_rays_sponza, mk_img, mk_secs = phase_headline(
         mk.render_megakernel, scene, cam, smi, "sponza_proc scale 2 "
         "megakernel", traverse8, (traverse5, traverse1),
         waves=-(-64 // per_wave))
-    check_tallies(mk_rays, rays8, "sponza_proc megakernel vs wavefront")
-    if not (mk_rays == rays8).all():
+    check_tallies(mk_rays_sponza, rays8,
+                  "sponza_proc megakernel vs wavefront")
+    if not (mk_rays_sponza == rays8).all():
         raise AssertionError("megakernel and wavefront headline tallies "
                              "differ")
     megakernel_bound(scene, cam, "sponza_proc scale 2 megakernel traverse8")
 
     # ---- the Morton-heap path (leaf_size 4, traverse1) ----
     t0 = time.perf_counter()
-    heap, _, hcam = load_pair(resolve_scene_bytes("sponza_proc"), 1024,
-                              1024, leaf_size=4, device=cuda)
+    heap, _, hcam = load_pair(sponza_glb, 1024, 1024, leaf_size=4,
+                              device=cuda)
     log(f"[scene] sponza_proc scale 2 leaf_size 4: NI {heap.bvh_ni}, depth "
         f"{heap.bvh_depth}, {heap.bvh_leaves.shape[0]} leaves; children "
         f"{table_bytes(heap.bvh_children)} bytes, leaves "
@@ -1175,9 +1569,9 @@ def main() -> int:
     err1, times1, b1 = phase_mt_heap(heap, scene, host, smi)
     del scene, cam, host
     phase_engines()
-    launches1, _ = phase_headline(render_wavefront, heap, hcam, smi,
-                                  "sponza_proc scale 2 leaf_size 4",
-                                  traverse1, (traverse8, traverse5))
+    launches1 = phase_headline(render_wavefront, heap, hcam, smi,
+                               "sponza_proc scale 2 leaf_size 4",
+                               traverse1, (traverse8, traverse5))[0]
     report["traverse1"] = dict(launches=launches1, max_abs_err=err1,
                                times=times1, bound=b1)
     del heap, hcam
@@ -1226,15 +1620,15 @@ def main() -> int:
     del prim1m, bounce1m
     launches5, rays5 = phase_headline(render_wavefront, scene, cam, smi,
                                       "minecraft_proc --shared-instances",
-                                      traverse5, (traverse8, traverse1))
+                                      traverse5, (traverse8, traverse1))[:2]
     report["traverse5"] = dict(launches=launches5, max_abs_err=err5,
                                times=times["bounce"], bound=b5)
 
     # ---- the megakernel on the two-level path (traverse5, masked) ----
-    _, mk_rays = phase_headline(
+    mk_rays = phase_headline(
         mk.render_megakernel, scene, cam, smi, "minecraft_proc "
         "--shared-instances megakernel", traverse5, (traverse8, traverse1),
-        waves=-(-64 // per_wave))
+        waves=-(-64 // per_wave))[1]
     check_tallies(mk_rays, rays5, "minecraft_proc megakernel vs wavefront")
     if not (mk_rays == rays5).all():
         raise AssertionError("minecraft_proc megakernel and wavefront "
@@ -1250,6 +1644,13 @@ def main() -> int:
     timed_phase("Sponza gate", phase_sponza_gate, smi)
     timed_phase("oracle gate", phase_oracle_gate, smi)
 
+    # ---- ingest parity without Pillow and the CLI (20, 22), then the
+    # sharded frames on the one card (21) ----
+    timed_phase("ingest parity, NCCL rank and CLI", phase_side_processes)
+    timed_phase("sharded", phase_sharded, smi, sponza_glb,
+                {"wavefront": (img8, rays8, secs8),
+                 "megakernel": (mk_img, mk_rays_sponza, mk_secs)})
+
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", **KERNELS[name],
         launches=r["launches"], max_abs_err=r["max_abs_err"],
@@ -1262,5 +1663,64 @@ def main() -> int:
     return 0
 
 
+def cards_main() -> int:
+    """python3 chip_smoke.py --cards, on a machine with several cards:
+    the --devices path across them. The single-device headline frames
+    (wavefront and megakernel, as 7 and 8) on cuda:0, then one NCCL
+    rank per card, each case against its single frame and each rank's
+    traverse8 launches checked as in phase 21: both engines at dp = N,
+    and the wavefront at 2x2 and 1x4 on four cards; then the CLI with --devices N at the headline config prints
+    the three contract lines."""
+    from sycl_ray_tracer_torch.models import megakernel as mk
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.ops.traverse1 import traverse1
+    from sycl_ray_tracer_torch.ops.traverse5 import traverse5
+    from sycl_ray_tracer_torch.ops.traverse8 import traverse8
+    from sycl_ray_tracer_torch.utils.cli import resolve_scene_bytes
+
+    smi = phase_device()
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise RuntimeError(f"--cards needs two cards or more; there is {n}")
+    phase_build()
+    sponza_glb = resolve_scene_bytes("sponza_proc")
+    scene, cam, _ = load(sponza_glb, 1024, 1024, torch.device("cuda:0"))
+    refs = {}
+    per_wave = max(1, min(64, mk.WAVE_RAYS // (1024 * 1024)))
+    for name, render, waves in (("wavefront", render_wavefront, 1),
+                                ("megakernel", mk.render_megakernel,
+                                 -(-64 // per_wave))):
+        _, rays, img, secs = phase_headline(
+            render, scene, cam, smi, f"sponza_proc scale 2 {name}",
+            traverse8, (traverse5, traverse1), waves=waves)
+        refs[name] = (img, rays, secs)
+    del scene, cam
+    torch.cuda.empty_cache()
+    meshes = [(n, 1)] + ([(2, 2), (1, 4)] if n == 4 else [])
+    cases = [(f"sponza_proc 1024x1024 spp64 d10 {name}, mesh {dp}x{sp}",
+              name, "traverse8",
+              dict(scene=0, dp=dp, sp=sp, renderer=name, **HEADLINE))
+             for dp, sp in meshes
+             for name in (("wavefront", "megakernel") if sp == 1
+                          else ("wavefront",))]
+    run_sharded(smi, "nccl", [f"cuda:{r}" for r in range(n)],
+                [dict(glb=sponza_glb)], cases, refs)
+    p = subprocess.run(
+        [sys.executable, "-m", PKG, "sponza_proc", "--devices", str(n),
+         "--warmup", "-s", "64", "-d", "10", "--width", "1024", "--height",
+         "1024", "-o", os.path.join(ROOT, "build", "smoke", "cards.png")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), text=True,
+        capture_output=True, timeout=600)
+    lines = [ln for ln in p.stdout.splitlines()
+             if ln.startswith(("Time measured", "Total rays", "Rays/sec"))]
+    log(f"[cli] sponza_proc --devices {n} --warmup -s 64 -d 10 1024x1024 on "
+        f"{smi}: exit {p.returncode}; " + "; ".join(lines))
+    if p.returncode != 0 or len(lines) != 3:
+        raise AssertionError(f"the CLI with --devices {n} failed:\n"
+                             f"{p.stderr[-4000:]}")
+    log("[cards] ok")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cards_main() if sys.argv[1:] == ["--cards"] else main())

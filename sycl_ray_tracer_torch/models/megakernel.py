@@ -18,6 +18,11 @@ ray:
   live at max_depth contributes black, and max_depth = 0 renders black
   with no rays.
 
+accumulate_megakernel renders any list of R pixels, keyed on their ids
+in the whole frame, as models/wavefront.py:accumulate_wavefront does;
+render_megakernel is accumulate_megakernel over every pixel, then the
+gamma.
+
 The engines compute the same function per path; only the order of the
 float sums into a pixel differs, so the megakernel matches
 models/wavefront.py to float noise with equal tallies. The TPU
@@ -32,27 +37,29 @@ import torch
 
 from sycl_ray_tracer_torch.models import trace as _trace
 from sycl_ray_tracer_torch.models.camera import Camera, generate_rays
+from sycl_ray_tracer_torch.models.wavefront import frame_pixels
 from sycl_ray_tracer_torch.ops import rng as _rng
 from sycl_ray_tracer_torch.ops.vec import V3, linear_to_gamma
 
-# Lanes per wave: whole camera samples of the frame up to 8M lanes (the
-# JAX engine's default wave); a frame larger than that runs one sample
-# per wave.
+# Lanes per wave: whole camera samples of the pixels up to 8M lanes (the
+# JAX engine's default wave); more pixels than that run one sample per
+# wave.
 WAVE_RAYS = 8 << 20
 
 
 def _wave(scene, cam: Camera, seed: int, sample_offset: int, rays,
-          *, width: int, height: int, max_depth: int, waves: int,
-          rr: bool) -> torch.Tensor:
-    """`waves` samples of every pixel from sample_offset on; adds the
-    per-bounce tallies into rays [max_depth] (numpy int64) and returns
-    the wave's linear color summed over its samples, [n, 3]."""
-    dev = cam.center.device
-    n = width * height
-    lane = torch.arange(waves * n, dtype=torch.int64, device=dev)
-    pix = lane % n
-    key = _rng.make_key(_rng.make_key(seed, sample_offset + lane // n), pix)
-    o, d = generate_rays(cam, pix % width, pix // width, key)
+          *, pixels, max_depth: int, waves: int, rr: bool) -> torch.Tensor:
+    """`waves` samples of each of the R pixels (px, py, lane) = `pixels`
+    from sample_offset on; adds the per-bounce tallies into rays
+    [max_depth] (numpy int64) and returns the wave's linear color summed
+    over its samples, [R, 3]."""
+    px, py, lane = pixels
+    r = lane.shape[0]
+    ids = torch.arange(waves * r, dtype=torch.int64, device=lane.device)
+    idx = ids % r
+    key = _rng.make_key(_rng.make_key(seed, sample_offset + ids // r),
+                        lane[idx])
+    o, d = generate_rays(cam, px[idx], py[idx], key)
     zero = torch.zeros_like(o.x)
     one = torch.ones_like(o.x)
     st = _trace.PathState(o=o, d=d, att=V3(one, one, one),
@@ -65,7 +72,30 @@ def _wave(scene, cam: Camera, seed: int, sample_offset: int, rays,
             break
         rays[i] += live
         st = _trace.trace_step(scene, st, key, i + 2, rr=rr)
-    return torch.stack(st.result, dim=1).view(waves, n, 3).sum(dim=0)
+    return torch.stack(st.result, dim=1).view(waves, r, 3).sum(dim=0)
+
+
+def accumulate_megakernel(scene, cam: Camera, px: torch.Tensor,
+                          py: torch.Tensor, lane: torch.Tensor, *, spp: int,
+                          max_depth: int, seed: int, sample_offset: int = 0,
+                          rr: bool = False):
+    """The linear color of the R pixels (px, py) [R] int64, summed over
+    samples sample_offset .. sample_offset + spp - 1, each pixel keyed
+    on lane [R] (its id in the whole frame). Returns (sum [R, 3] f32 on
+    the camera's device, per-bounce ray counts [max_depth] int64 on the
+    CPU)."""
+    r = lane.shape[0]
+    waves = max(1, min(spp, WAVE_RAYS // r))
+    acc = torch.zeros((r, 3), dtype=torch.float32, device=lane.device)
+    rays = np.zeros((max_depth,), np.int64)
+    s = 0
+    while s < spp:
+        w = min(waves, spp - s)
+        acc += _wave(scene, cam, seed, sample_offset + s, rays,
+                     pixels=(px, py, lane), max_depth=max_depth, waves=w,
+                     rr=rr)
+        s += w
+    return acc, torch.from_numpy(rays)
 
 
 def render_megakernel(scene, cam: Camera, *, width: int, height: int,
@@ -73,15 +103,8 @@ def render_megakernel(scene, cam: Camera, *, width: int, height: int,
                       rr: bool = False):
     """Returns (image [H, W, 3] float32 gamma-encoded on the scene's
     device, per-bounce ray counts [max_depth] int64 on the CPU)."""
-    n = width * height
-    waves = max(1, min(spp, WAVE_RAYS // n))
-    acc = torch.zeros((n, 3), dtype=torch.float32, device=cam.center.device)
-    rays = np.zeros((max_depth,), np.int64)
-    s = 0
-    while s < spp:
-        w = min(waves, spp - s)
-        acc += _wave(scene, cam, seed, s, rays, width=width, height=height,
-                     max_depth=max_depth, waves=w, rr=rr)
-        s += w
+    acc, rays = accumulate_megakernel(
+        scene, cam, *frame_pixels(width, height, cam.center.device),
+        spp=spp, max_depth=max_depth, seed=seed, rr=rr)
     img = linear_to_gamma(acc * (1.0 / spp))
-    return img.reshape(height, width, 3), torch.from_numpy(rays)
+    return img.reshape(height, width, 3), rays

@@ -257,8 +257,9 @@ def build_device_scene(host: HostScene, leaf_size: int = LEAF_SIZE,
 
 
 def load_scene(path: str, leaf_size: int = LEAF_SIZE,
-               device="cuda", intersector: str = "auto") -> tuple:
-    """.glb path -> (DeviceScene, HostScene)."""
-    host = load_glb(path)
+               device="cuda", intersector: str = "auto",
+               global_scale=(1.0, 1.0, 1.0)) -> tuple:
+    """.glb path -> (DeviceScene, HostScene), at global_scale."""
+    host = load_glb(path, global_scale)
     return build_device_scene(host, leaf_size, device=device,
                               intersector=intersector), host

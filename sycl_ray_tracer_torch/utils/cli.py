@@ -12,15 +12,23 @@ default 32, -m megakernel, -w wavefront, the default; with both, the
 megakernel wins as in main.cpp:58; positional scene path defaulting to
 ./assets/sponza.glb; a missing file is an error). --width/--height lift the reference's
 hardcoded 1920x1080 (main.cpp:36). Additions: --seed, --output, --rr,
---warmup, --device, --shared-instances, and procedural scene names
-(sponza_proc / minecraft_proc / instanced_proc / triangle / cube /
-dielectric) for when no .glb is at hand.
+--scale (the reference Scene's global_scale), --warmup, --device,
+--devices, --shared-instances, and procedural scene names (sponza_proc
+/ minecraft_proc / instanced_proc / triangle / cube / dielectric) for
+when no .glb is at hand.
 
 --shared-instances loads the scene two-level, as the reference's
 Embree BLAS per primitive + TLAS of instances (scene.cpp:404-439): one
 copy of each unique primitive, one transform per instance
 (utils/instanced.py, models/instanced.py), intersected by the traverse5
 kernel. Without it every instance is baked to world space.
+
+--devices N renders one frame over N processes, one per device
+(parallel/mesh.py, dp = N): with --device cuda, rank r uses cuda:r and
+NCCL, and N must not exceed the machine's CUDA devices; with --device
+cpu, N processes on the CPU use gloo. Each rank loads the scene itself;
+rank 0 prints the contract lines and writes the image, its time running
+from a barrier before the render to the reduced image.
 
 The default device is cuda, and a machine without CUDA is an error,
 with either engine: the CPU runs only when asked for with --device cpu.
@@ -29,8 +37,10 @@ with either engine: the CPU runs only when asked for with --device cpu.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import sys
+import tempfile
 import time
 
 DEFAULT_SCENE = "./assets/sponza.glb"
@@ -56,7 +66,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rr", action="store_true",
                    help="russian-roulette path termination (unbiased; "
                         "extension over the reference)")
+    p.add_argument("--scale", type=float, nargs=3, default=(1.0, 1.0, 1.0),
+                   metavar=("SX", "SY", "SZ"),
+                   help="global scene scale (the Scene's global_scale)")
     p.add_argument("-o", "--output", default="out.png")
+    p.add_argument("--devices", type=int, default=1,
+                   help="render over this many devices, one process each "
+                        "(sample sharding)")
     p.add_argument("--warmup", action="store_true",
                    help="run one untimed frame first (kernel build, "
                         "allocator warm-up)")
@@ -89,30 +105,100 @@ def resolve_scene_bytes(scene_path: str) -> bytes:
         return f.read()
 
 
-def load_scene(scene_bytes: bytes, device, shared_instances: bool):
-    """(DeviceScene, host) for a .glb, baked or two-level; `host` has
-    the camera and sky fields. Prints the triangle counts."""
+def load_scene(scene_bytes: bytes, device, shared_instances: bool,
+               global_scale=(1.0, 1.0, 1.0), leaf_size: int = 8, log=print):
+    """(DeviceScene, host) for a .glb, baked (at `leaf_size`) or
+    two-level; `host` has the camera and sky fields. Logs the triangle
+    counts."""
     if shared_instances:
         from sycl_ray_tracer_torch.models.instanced import (
             build_instanced_device_scene)
         from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
 
-        host = load_glb_instanced(scene_bytes)
-        print(f"Triangles: {host.num_world_triangles} "
-              f"({host.num_unique_triangles} unique x "
-              f"{host.num_instances} instances)")
+        host = load_glb_instanced(scene_bytes, global_scale)
+        log(f"Triangles: {host.num_world_triangles} "
+            f"({host.num_unique_triangles} unique x "
+            f"{host.num_instances} instances)")
         scene = build_instanced_device_scene(host, device=device)
-        print(f"Instanced tree: {scene.sah_ni} internal nodes, "
-              f"{scene.inst_leaf_slot.shape[0]} leaves, depth "
-              f"{scene.bvh_depth}")
+        log(f"Instanced tree: {scene.sah_ni} internal nodes, "
+            f"{scene.inst_leaf_slot.shape[0]} leaves, depth "
+            f"{scene.bvh_depth}")
         return scene, host
 
     from sycl_ray_tracer_torch.models.scene import build_device_scene
     from sycl_ray_tracer_torch.utils.gltf import load_glb
 
-    host = load_glb(scene_bytes)
-    print(f"Triangles: {host.num_triangles}")
-    return build_device_scene(host, device=device), host
+    host = load_glb(scene_bytes, global_scale)
+    log(f"Triangles: {host.num_triangles}")
+    return build_device_scene(host, leaf_size, device=device), host
+
+
+def timed_frame(run, device):
+    """(run(), seconds): the time of a frame from a barrier of the ranks
+    (under --devices) and a synchronize of the device before it to a
+    synchronize after it."""
+    import torch
+    import torch.distributed as dist
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    if dist.is_initialized():
+        dist.barrier()
+    sync()
+    begin = time.perf_counter()
+    out = run()
+    sync()
+    return out, time.perf_counter() - begin
+
+
+def render_frame(rank: int, device, args) -> int:
+    """Load, render and report one frame: the whole CLI on one device,
+    or one rank's part of it under --devices (parallel/mesh.py:spawn)."""
+    import torch.distributed as dist
+
+    from sycl_ray_tracer_torch.models.camera import make_camera
+    from sycl_ray_tracer_torch.utils.image_io import write_png
+
+    sharded = dist.is_initialized()
+    log = print if rank == 0 else (lambda *a: None)
+    # both flags set -> megakernel (main.cpp:58 checks -m first)
+    engine = "megakernel" if args.megakernel else "wavefront"
+    if sharded:
+        from sycl_ray_tracer_torch.parallel.mesh import render_sharded
+
+        render = functools.partial(render_sharded, renderer=engine)
+    else:
+        from sycl_ray_tracer_torch.models.renderer import get_renderer
+
+        render = get_renderer(engine)
+
+    log(f"Loading scene: {args.scene_path}")
+    scene, host = load_scene(resolve_scene_bytes(args.scene_path), device,
+                             args.shared_instances, tuple(args.scale),
+                             log=log)
+    cam = make_camera(args.width, args.height, host.camera_position,
+                      host.camera_direction, host.camera_focal_length,
+                      device=device)
+
+    def run(seed):
+        return render(scene, cam, width=args.width, height=args.height,
+                      spp=args.sample_count, max_depth=args.max_depth,
+                      seed=seed, rr=args.rr)
+
+    if args.warmup:
+        run(args.seed + 1)
+    (img, rays), secs = timed_frame(lambda: run(args.seed), device)
+    total_rays = int(rays.sum())
+    log(f"Time measured: {secs:.6f} seconds")
+    log(f"Total rays: {total_rays}")
+    log(f"Rays/sec: {total_rays / secs / 1e6:.2f}M")
+
+    if rank == 0:
+        print("Writing image to disk")
+        write_png(args.output, img.cpu().numpy())
+    return 0
 
 
 def main(argv=None) -> int:
@@ -123,47 +209,25 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to "
                            "render on the CPU")
-    device = torch.device(args.device)
+    n = args.devices
+    if n < 1:
+        raise ValueError(f"--devices must be at least 1, not {n}")
+    if n == 1:
+        return render_frame(0, torch.device(args.device), args)
+    if args.device == "cuda":
+        if n > torch.cuda.device_count():
+            raise RuntimeError(
+                f"--devices {n} needs {n} CUDA devices; this machine has "
+                f"{torch.cuda.device_count()}")
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(n)]
+    else:
+        backend, devices = "gloo", ["cpu"] * n
 
-    from sycl_ray_tracer_torch.models.camera import make_camera
-    from sycl_ray_tracer_torch.models.renderer import get_renderer
-    from sycl_ray_tracer_torch.utils.image_io import write_png
+    from sycl_ray_tracer_torch.parallel.mesh import spawn
 
-    # both flags set -> megakernel (main.cpp:58 checks -m first)
-    render = get_renderer("megakernel" if args.megakernel else "wavefront")
-
-    print(f"Loading scene: {args.scene_path}")
-    scene, host = load_scene(resolve_scene_bytes(args.scene_path), device,
-                             args.shared_instances)
-    cam = make_camera(args.width, args.height, host.camera_position,
-                      host.camera_direction, host.camera_focal_length,
-                      device=device)
-
-    def run(seed):
-        return render(scene, cam, width=args.width, height=args.height,
-                      spp=args.sample_count, max_depth=args.max_depth,
-                      seed=seed, rr=args.rr)
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    if args.warmup:
-        run(args.seed + 1)
-        sync()
-
-    sync()
-    begin = time.perf_counter()
-    img, rays = run(args.seed)
-    sync()
-    secs = time.perf_counter() - begin
-    total_rays = int(rays.sum())
-    print(f"Time measured: {secs:.6f} seconds")
-    print(f"Total rays: {total_rays}")
-    print(f"Rays/sec: {total_rays / secs / 1e6:.2f}M")
-
-    print("Writing image to disk")
-    write_png(args.output, img.cpu().numpy())
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(render_frame, n, backend, devices,
+              f"file://{os.path.join(tmp, 'store')}", args=(args,))
     return 0
 
 

@@ -183,6 +183,51 @@ def textured_scene_glb() -> bytes:
     return b.tobytes()
 
 
+def _resize_texture(w: int, h: int, channels: int, seed: int) -> np.ndarray:
+    """[h, w, channels] uint8: two gradients, a checker and seeded noise,
+    so that a resize to 512x512 both shrinks and stretches detail."""
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
+                    np.where((xx // 16 + yy // 16) % 2 == 0, 230, 30),
+                    96 + (xx * 7 + yy * 3) % 160], axis=-1)[..., :channels]
+    img = img + rs.randint(-12, 13, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+# The resized textures of resized_textures_glb: (width, height, channels)
+RESIZED_TEXTURES = ((256, 256, 4), (1024, 1024, 4), (300, 700, 3))
+# sha256 of each of its decoded textures ([512, 512, 4] uint8), pinned
+# against the Pillow resize of the JAX package's decode_image_bytes
+# (tests/test_torch_ingest.py); utils/gltf.py reaches them without Pillow.
+RESIZED_TEXTURES_SHA256 = (
+    "5a22d68f15751d1f8e422a352688b11bb4a28feed2cd0c3ed83a5ee3f002db34",
+    "0443736d19fd6ae4fff1ecda106cb151331a95f680ea0469ed0f609870c2d57f",
+    "5f755d5500d49ec9d61f0e5b2347b934367c1f220e122c57154052dbc14c4806",
+)
+
+
+def resized_textures_glb() -> bytes:
+    """Three diffuse quads side by side, each with a baseColorTexture
+    that is not 512x512 (RESIZED_TEXTURES), under a lamp: the ingest
+    resamples each to the atlas resolution."""
+    b = GlbBuilder()
+    for i, (w, h, c) in enumerate(RESIZED_TEXTURES):
+        tex = b.add_texture_png(encode_png(_resize_texture(w, h, c, i)))
+        mat = b.add_material(base_color=(1, 1, 1), metallic=0.0,
+                             base_color_texture=tex, name=f"tex{w}x{h}")
+        p, n, uv, idx = _quad((2.2 * (i - 1), 0, 0), 1.0, axis=2)
+        b.add_node(mesh=b.add_mesh(p, n, uv, idx, mat))
+    light_m = b.add_material(base_color=(1, 1, 1), emissive=(1, 1, 1),
+                             emissive_strength=1.0, name="light")
+    p, n, uv, idx = _quad((0, 3.0, 1.0), 2.0, axis=1)
+    b.add_node(mesh=b.add_mesh(p, -n, uv, idx, light_m))
+    b.add_node(camera=b.add_camera(yfov=np.deg2rad(40)),
+               translation=[0, 0, 4.5])
+    b.set_sky((0.6, 0.6, 0.7), strength=0.3)
+    return b.tobytes()
+
+
 def _quat_from_euler_x(rx: float):
     return [np.sin(rx / 2), 0.0, 0.0, np.cos(rx / 2)]
 

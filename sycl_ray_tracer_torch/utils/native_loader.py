@@ -12,7 +12,8 @@ loaded raises instead of falling back.
 The native core handles the heavy ingest (GLB/JSON/accessors/transform
 baking/material classification, the tiny_gltf-equivalent layer); image
 decoding stays in Python (utils/gltf.py decode_image_bytes). The
-port loads every scene at unit global scale.
+global scale (the reference Scene's global_scale) is applied by the
+native core, innermost in every node's world matrix.
 """
 
 from __future__ import annotations
@@ -87,13 +88,14 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def load_glb_native(data: bytes):
-    """Parse GLB with the native core into a HostScene."""
+def load_glb_native(data: bytes, global_scale=(1.0, 1.0, 1.0)):
+    """Parse GLB with the native core into a HostScene, at global_scale
+    (SX, SY, SZ)."""
     from sycl_ray_tracer_torch.utils.gltf import (TEX_RES, HostMaterialTable,
                                                 HostScene)
 
     lib = load_library()
-    scale = (ctypes.c_float * 3)(1.0, 1.0, 1.0)
+    scale = (ctypes.c_float * 3)(*[float(x) for x in global_scale])
     handle = lib.srt_load_glb(data, len(data), scale)
     if not handle:
         raise RuntimeError("native loader returned null")

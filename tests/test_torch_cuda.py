@@ -446,3 +446,66 @@ def test_deep_tree_kernel_matches_plain(cuda):
     assert torch.equal(k.tri >= 0, p.tri >= 0)
     tie = (k.t - p.t).abs() <= 1e-6 * p.t.abs()
     assert not bool(((k.tri != p.tri) & ~tie).any())
+
+
+def test_resized_textures_without_pil_match_pinned_digests(cuda):
+    """On this machine, with every import of PIL refused: the resized
+    fixture textures equal the digests pinned against Pillow on the CPU
+    (tests/test_torch_ingest.py::test_resized_textures_pinned)."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = """
+import sys, hashlib
+class _NoPil:
+    def find_spec(self, name, path=None, target=None):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("PIL refused")
+sys.meta_path.insert(0, _NoPil())
+from sycl_ray_tracer_torch.utils import fixtures
+from sycl_ray_tracer_torch.utils.gltf import load_glb
+tex = load_glb(fixtures.resized_textures_glb()).textures
+got = tuple(hashlib.sha256(t.tobytes()).hexdigest() for t in tex)
+assert got == fixtures.RESIZED_TEXTURES_SHA256, got
+assert "PIL" not in sys.modules
+print("ok")
+"""
+    p = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       env=dict(os.environ, PYTHONPATH=root),
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "ok"
+
+
+def test_two_gloo_ranks_on_one_card_match_single(cuda, tmp_path):
+    """parallel/mesh.py with two gloo ranks sharing the card (NCCL
+    refuses two ranks on one GPU): meshes 2x1 and 1x2 on the cube equal
+    the single-device render to 1e-6 RMSE with equal tallies, and each
+    rank launched traverse8 once per bounce of each of its waves."""
+    from chip_smoke import check_rank_launches, render_jobs
+    from sycl_ray_tracer_torch.parallel.mesh import spawn
+
+    kw = dict(width=48, height=48, spp=4, max_depth=6, seed=4)
+    jobs = [dict(scene=0, dp=dp, sp=sp, renderer=r, **kw)
+            for dp, sp in ((2, 1), (1, 2))
+            for r in ("wavefront", "megakernel")]
+    path = str(tmp_path / "out.pt")
+    dev = f"cuda:{torch.cuda.current_device()}"
+    spawn(render_jobs, 2, "gloo", [dev] * 2,
+          f"file://{tmp_path / 'store'}", args=([dict(glb="cube")], jobs,
+                                                path))
+    host = load_glb(tfix.cube_scene_glb())
+    scene = build_device_scene(host, device=cuda)
+    cam = make_camera(48, 48, host.camera_position, host.camera_direction,
+                      host.camera_focal_length, device=cuda)
+    for job, (img, rays, _, launches) in zip(jobs, torch.load(path)):
+        render = (render_wavefront if job["renderer"] == "wavefront"
+                  else render_megakernel)
+        ref, ref_rays = render(scene, cam, **kw)
+        err = float(torch.sqrt(torch.mean(
+            (img.double() - ref.cpu().double()) ** 2)))
+        assert err < 1e-6, (job, err)
+        assert torch.equal(rays, ref_rays), (job, rays, ref_rays)
+        check_rank_launches(str(job), "traverse8", job, rays, launches)

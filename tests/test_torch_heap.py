@@ -21,7 +21,8 @@ from sycl_ray_tracer_tpu.ops.intersect import intersect_brute_np
 from sycl_ray_tracer_tpu.utils.gltf import load_glb as jload
 from sycl_ray_tracer_torch.models import trace as ttrace
 from sycl_ray_tracer_torch.models.scene import build_device_scene, load_scene
-from sycl_ray_tracer_torch.models.wavefront import _bounce, _gen_queue
+from sycl_ray_tracer_torch.models.wavefront import (_bounce, _gen_queue,
+                                                     frame_pixels)
 from sycl_ray_tracer_torch.ops import kernels
 from sycl_ray_tracer_torch.ops import sah as tsah
 from sycl_ray_tracer_torch.ops import traverse1 as t1
@@ -183,10 +184,11 @@ def _sponza():
 def _frame_rays(scene, cam):
     """The 2048 primary rays of a 64x32 frame and the first-bounce rays
     that survive them, from the port's wavefront on `scene`."""
-    q, q_id = _gen_queue(cam, 0, 0, width=64, height=32)
+    pixels = frame_pixels(64, 32, "cpu")
+    q, q_id = _gen_queue(cam, 0, 0, pixels=pixels)
     prim = q[0:6].T.numpy().copy()
     acc = torch.zeros((64 * 32, 3))
-    qb, _ = _bounce(scene, q, q_id, 0, acc, 0, 0)
+    qb, _ = _bounce(scene, q, q_id, 0, acc, 0, 0, pixels[2])
     return prim, qb[0:6].T.numpy().copy()
 
 

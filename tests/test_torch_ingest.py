@@ -2,6 +2,7 @@
 Woop tables, identical to the JAX package's."""
 
 import io
+import sys
 
 import numpy as np
 import pytest
@@ -179,3 +180,86 @@ def test_stack_bound_matches_header():
     _, th = _hosts("sponza1")
     ts = build_device_scene(th, device="cpu")
     assert 7 * ts.bvh_depth + 1 <= kernels.STACK
+
+
+_RESIZE_SHAPES = [(256, 256), (1024, 1024), (300, 700), (513, 40)]
+
+
+@pytest.mark.parametrize("h,w", _RESIZE_SHAPES)
+def test_resample_bilinear_equals_pillow(h, w):
+    """The numpy resample against Pillow's mode-F BILINEAR resize to
+    512x512, bit for bit, on random float32 images."""
+    a = np.random.RandomState(h * 7 + w).rand(h, w).astype(np.float32)
+    ref = np.asarray(Image.fromarray(a, "F").resize(
+        (tgltf.TEX_RES, tgltf.TEX_RES), Image.BILINEAR), np.float32)
+    got = tgltf.resample_bilinear(a, tgltf.TEX_RES, tgltf.TEX_RES)
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("h,w", _RESIZE_SHAPES)
+def test_decode_image_bytes_equals_jax_without_pil(monkeypatch, h, w,
+                                                   channels):
+    """PNGs that need the resize decode byte-equal to the JAX package's
+    Pillow path, with every import of PIL refused on the port's side."""
+    img = tfix._resize_texture(w, h, channels, seed=h + w)
+    for png in (encode_png(img), _pil_png(img)):
+        ref = jgltf.decode_image_bytes(png)
+        monkeypatch.setitem(sys.modules, "PIL", None)
+        got = tgltf.decode_image_bytes(png)
+        monkeypatch.undo()
+        assert got.dtype == np.uint8 and got.shape == ref.shape
+        assert np.array_equal(got, ref)
+
+
+def test_non_png_texture_names_pillow(monkeypatch):
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="JPEG")
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(NotImplementedError, match="image 2.*needs Pillow"):
+        tgltf.decode_image_bytes(buf.getvalue(), "image 2")
+
+
+def test_resized_textures_pinned():
+    """The fixture's decoded textures: the port's equal the Pillow path's,
+    and both equal the digests that chip_smoke.py checks on the card."""
+    import hashlib
+
+    glb = tfix.resized_textures_glb()
+    ref = jgltf.load_glb(glb).textures
+    got = tgltf.load_glb(glb).textures
+    assert np.array_equal(got, ref)
+    assert tuple(hashlib.sha256(t.tobytes()).hexdigest()
+                 for t in ref) == tfix.RESIZED_TEXTURES_SHA256
+
+
+_SCALE = (2.0, 0.5, 3.0)
+
+
+@pytest.mark.parametrize("name", ["cube", "resized", "instanced"])
+def test_global_scale_equals_jax(name):
+    """load_glb and load_glb_instanced at global_scale (2, 0.5, 3): the
+    port's host scenes equal the JAX package's bit for bit (vertices,
+    normals, camera), and the instanced world matrices carry the scale
+    as JAX applies it."""
+    from sycl_ray_tracer_tpu.utils import instanced as jinst
+    from sycl_ray_tracer_torch.utils import instanced as tinst
+
+    glb = {"cube": tfix.cube_scene_glb, "resized": tfix.resized_textures_glb,
+           "instanced": lambda: tfix.instanced_scene_glb(30)}[name]()
+    jh = jgltf.load_glb(glb, global_scale=_SCALE)
+    th = tgltf.load_glb(glb, global_scale=_SCALE)
+    for f in _FIELDS:
+        assert np.array_equal(getattr(jh, f), getattr(th, f)), f
+    assert jh.camera_focal_length == th.camera_focal_length
+    assert not np.array_equal(th.tri_v, tgltf.load_glb(glb).tri_v)
+    ji = jinst.load_glb_instanced(glb, global_scale=_SCALE)
+    ti = tinst.load_glb_instanced(glb, global_scale=_SCALE)
+    assert np.array_equal(ji.inst_mat, ti.inst_mat)
+    assert np.array_equal(ji.inst_prim, ti.inst_prim)
+    for f in ("camera_position", "camera_direction", "textures"):
+        assert np.array_equal(getattr(ji, f), getattr(ti, f)), f
+    baked = ti.bake()
+    for f in ("tri_v", "tri_n"):
+        assert np.array_equal(getattr(baked, f), getattr(th, f)), f

@@ -16,6 +16,7 @@ from sycl_ray_tracer_torch.models.scene import (build_device_scene,
                                                 check_stack)
 from sycl_ray_tracer_torch.models.trace import intersect_scene
 from sycl_ray_tracer_torch.models.wavefront import (_bounce, _gen_queue,
+                                                     frame_pixels,
                                                     render_wavefront)
 from sycl_ray_tracer_torch.ops import kernels, lbvh
 from sycl_ray_tracer_torch.ops.intersect import intersect_brute_np
@@ -156,9 +157,11 @@ def test_traverse_equals_jax_on_sponza():
         js.lbvh_lo, js.lbvh_hi, js.lbvh_v0, js.lbvh_e1, js.lbvh_e2)]
     scene, _, cam = tfix.load_pair(glb, 64, 64, leaf_size=8, device="cpu",
                                    intersector="lbvh")
-    q, _ = _gen_queue(cam, 0, 0, width=64, height=64)
-    q2, q2_id = _gen_queue(cam, 0, 0, width=64, height=64, waves=2)
-    qb, _ = _bounce(scene, q2, q2_id, 0, torch.zeros((64 * 64, 3)), 0, 0)
+    pixels = frame_pixels(64, 64, "cpu")
+    q, _ = _gen_queue(cam, 0, 0, pixels=pixels)
+    q2, q2_id = _gen_queue(cam, 0, 0, pixels=pixels, waves=2)
+    qb, _ = _bounce(scene, q2, q2_id, 0, torch.zeros((64 * 64, 3)), 0, 0,
+                    pixels[2])
     rays = torch.cat([q[:6, :4096], qb[:6, :4096]], dim=1).contiguous()
     assert rays.shape[1] == 8192
     o, d = V3(*rays[0:3]), V3(*rays[3:6])
@@ -326,7 +329,8 @@ def test_walks_differ_only_at_bit_equal_ties():
     mt = torch.from_numpy(sah.slot_rows(sah.leaf_rows(
         host.tri_v, sah.build_sah(host.tri_v, 8).order, 8), 8))
     mat = s_lbvh.shade_tbl[:, 15]
-    q, q_id = _gen_queue(cam, 0, 0, width=64, height=48, waves=8)
+    pixels = frame_pixels(64, 48, "cpu")
+    q, q_id = _gen_queue(cam, 0, 0, pixels=pixels, waves=8)
     for bounce in range(3):
         o, d = V3(*q[0:3]), V3(*q[3:6])
         ref = intersect_scene(s_lbvh, o, d)
@@ -345,7 +349,7 @@ def test_walks_differ_only_at_bit_equal_ties():
               f"the LBVH at a bit-equal t (of which on another material): "
               f"SAH tree with MT rows {counts[0]}, heap plain {counts[1]}")
         q, q_id = _bounce(s_lbvh, q, q_id, bounce, torch.zeros((64 * 48, 3)),
-                          0, 0)
+                          0, 0, pixels[2])
 
 
 @functools.lru_cache(maxsize=None)

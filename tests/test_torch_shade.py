@@ -33,7 +33,8 @@ def _setup():
     if not _STATE:
         host, scene, cam = port_pair(sponza_like_glb(scale=1), W, H)
         js = jbuild(jload(jsponza(scale=1)), leaf_size=8)
-        q, q_id = twf._gen_queue(cam, 3, 0, width=W, height=H)
+        q, q_id = twf._gen_queue(cam, 3, 0,
+                                 pixels=twf.frame_pixels(W, H, "cpu"))
         hit = ttrace.intersect_scene(scene, *(tv3(q[0:3].T.numpy()),
                                               tv3(q[3:6].T.numpy())))
         _STATE.update(host=host, scene=scene, js=js, q=q, q_id=q_id,
@@ -149,7 +150,7 @@ def test_bounce_matches_jax(monkeypatch, bounce_idx, rr):
                         spy("port", twf._coherence_key))
     acc = torch.zeros((W * H, 3))
     q2, q_id2 = twf._bounce(st["scene"], q, q_id, bounce_idx, acc, seed,
-                            sofs, rr=rr)
+                            sofs, torch.arange(W * H), rr=rr)
 
     jh = _jhit(hit)
     monkeypatch.setattr(jtrace, "intersect_scene",

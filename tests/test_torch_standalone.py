@@ -1,7 +1,8 @@
 """The port stands alone: it imports no JAX, Flax or JAX package (the
-card's machine has none), runs its main path without Pillow (nor has
-it), and its CLI keeps the stdout contract. Each check runs in a fresh
-interpreter."""
+card's machine has none; neither do the ranks that --devices spawns),
+runs its main path without Pillow, textures that need a resize
+included, and its CLI keeps the stdout contract. Each check runs in a
+fresh interpreter."""
 
 import os
 import re
@@ -45,6 +46,8 @@ _MAIN_PATH_MODULES = [
     "sycl_ray_tracer_torch.models.wavefront",
     "sycl_ray_tracer_torch.models.megakernel",
     "sycl_ray_tracer_torch.models.renderer",
+    "sycl_ray_tracer_torch.parallel",
+    "sycl_ray_tracer_torch.parallel.mesh",
 ]
 
 # refuses every import of PIL, as on a machine without Pillow
@@ -105,13 +108,17 @@ back = decode_png(open({str(out)!r}, "rb").read())
 assert back.shape == (24, 32, 4)
 assert (back[..., :3] == np.clip(img.numpy() * 255, 0, 255).astype(
     np.uint8)).all()
-# a texture that needs resizing says so instead of approximating
-try:
-    load_glb(textured_scene_glb())
-except NotImplementedError as e:
-    assert "image 0" in str(e) and "64x64" in str(e), e
-else:
-    raise AssertionError("resize without Pillow did not raise")
+# a 64x64 texture is resized to the atlas without Pillow, and renders
+th = load_glb(textured_scene_glb())
+assert th.textures.shape == (1, 512, 512, 4)
+tscene = build_device_scene(th, device="cpu")
+tcam = make_camera(16, 16, th.camera_position, th.camera_direction,
+                   th.camera_focal_length, device="cpu")
+img, rays = render_wavefront(tscene, tcam, width=16, height=16, spp=1,
+                             max_depth=2)
+img = img.numpy()
+assert np.isfinite(img).all() and img[..., 0].max() > 0.5
+assert img[..., 2].max() > 0.5
 # the two-level instanced path too
 from sycl_ray_tracer_torch.utils.fixtures import instanced_scene_glb
 from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
@@ -155,6 +162,24 @@ def test_cli_stdout_contract(tmp_path):
     assert m and int(m.group(1)) >= 32 * 24
     assert re.fullmatch(r"Rays/sec: \d+\.\d\dM", lines[i + 2])
     assert out.stat().st_size > 0
+
+
+def test_cli_devices_ranks_import_no_jax(tmp_path):
+    """--devices 2 on the CPU with jax, jaxlib and flax made unimportable
+    for the CLI and every rank it spawns: the frame still renders."""
+    for name in ("jax", "jaxlib", "flax"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} refused')\n")
+    out = tmp_path / "img.png"
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{_ROOT}")
+    p = subprocess.run(
+        [sys.executable, "-m", "sycl_ray_tracer_torch", "triangle",
+         "--device", "cpu", "--devices", "2", "-s", "2", "-d", "2",
+         "--width", "16", "--height", "12", "-o", str(out)], cwd=_ROOT,
+        env=env, capture_output=True, text=True, timeout=180)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.count("Total rays: ") == 1 and out.stat().st_size > 0
 
 
 def test_cli_refuses_missing_scene(tmp_path):

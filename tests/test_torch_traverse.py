@@ -121,8 +121,9 @@ def test_plain_matches_jax_cpu_traversal_on_sponza():
                             leaf_size=8)
     # 2048 jittered camera rays from the port's queue generator, 2048
     # random rays
-    from sycl_ray_tracer_torch.models.wavefront import _gen_queue
-    q, _ = _gen_queue(cam, 0, 0, width=64, height=32)
+    from sycl_ray_tracer_torch.models.wavefront import (_gen_queue,
+                                                        frame_pixels)
+    q, _ = _gen_queue(cam, 0, 0, pixels=frame_pixels(64, 32, "cpu"))
     o_r, d_r = _rays(host, 2048, 9)
     o = np.concatenate([q[0:3].T.numpy(), o_r])
     d = np.concatenate([q[3:6].T.numpy(), d_r])

@@ -39,11 +39,14 @@ def pinned_rays(scene, cam):
     `cam` (seed 0), as [6, 2048] CPU tensors (o then d): the primaries
     of one sample per pixel, and the first 2,048 survivors, in queue
     order, of a bounce over two samples per pixel on `scene`."""
-    from sycl_ray_tracer_torch.models.wavefront import _bounce, _gen_queue
+    from sycl_ray_tracer_torch.models.wavefront import (_bounce, _gen_queue,
+                                                        frame_pixels)
 
-    q, _ = _gen_queue(cam, 0, 0, width=64, height=32)
-    q2, q2_id = _gen_queue(cam, 0, 0, width=64, height=32, waves=2)
-    qb, _ = _bounce(scene, q2, q2_id, 0, torch.zeros((64 * 32, 3)), 0, 0)
+    pixels = frame_pixels(64, 32, "cpu")
+    q, _ = _gen_queue(cam, 0, 0, pixels=pixels)
+    q2, q2_id = _gen_queue(cam, 0, 0, pixels=pixels, waves=2)
+    qb, _ = _bounce(scene, q2, q2_id, 0, torch.zeros((64 * 32, 3)), 0, 0,
+                    pixels[2])
     return {"primary": q[0:6, :2048].contiguous(),
             "bounce": qb[0:6, :2048].contiguous()}
 
