@@ -127,7 +127,26 @@ Phases (any failure raises and exits non-zero):
    renders agree bit for bit, with the same launch check;
 22. the CLI on the card: --devices 2 exits non-zero naming the device
    count, and --devices 1 --scale 2 2 2 prints the three contract lines.
-Phases 4c and 17-22 print their seconds.
+23. the measuring entry points: (c) after 8, the headline frames of 7
+   and 8 again with SRT_PROFILE=1, timed by the CLI's timed_frame (after
+   16, that of 15 too): tallies equal, images within 1e-6 RMSE of the
+   frames without the profile, and the time of each stage (generate,
+   intersect, shade, scatter, accumulate, compact; the megakernel's
+   live-count read "count") from CUDA events, printed beside the frame's
+   seconds and the host's clock outside the stages, which must explain
+   what the stages leave of the frame to within 5 % of it; (d) each of
+   those frames under the CLI's traced_frame (SRT_TRACE_DIR's
+   torch.profiler trace): the trace is written, the path's kernel shows
+   device time (its calls printed beside the frame's launches), and the
+   device's busy share is printed; then, at the end, (a) bench_torch.py
+   with BENCH_RUNS=2, whose seed-0 run counts phase 7's rays, (b)
+   benchmark_torch.py --inproc on cube and sponza_proc with both
+   engines at 256x256, 4 spp, depth 10, runs 0-2: both CSVs with the
+   reference's columns, run 0
+   printed as discarded and left out of the average, each run's total
+   equal to a direct render of its seed, and (b') the cube wavefront
+   config in subprocess mode, with the seconds of both modes printed.
+Phases 4c and 17-23 print their seconds.
 
 Every headline frame also reports its kernel's time within the frame,
 from CUDA events around each launch.
@@ -1492,6 +1511,227 @@ def phase_headline(render, scene, cam, smi: str, label: str, kernel,
     return launches, rays.numpy(), img, secs
 
 
+# phase 23: the small matrix of benchmark_torch.py (scenes, engines, one
+# depth:spp pair, one resolution, timed runs after run 0)
+SWEEP = dict(scenes=("cube", "sponza_proc"), depth=10, spp=4, width=256,
+             height=256, runs=2)
+SWEEP_COLUMNS = {
+    "raw": ["renderer", "scene", "res", "depth", "samples", "run", "time_s",
+            "mrays_per_sec", "total_rays"],
+    "avg": ["renderer", "scene", "res", "depth", "samples", "time_s",
+            "mrays_per_sec", "total_rays"]}
+
+
+def phase_stage_split(render, scene, cam, smi: str, label: str, kernel: str,
+                      launches: int, ref: tuple) -> None:
+    """Phase 23 (c, d) for one headline frame of 7, 8 or 15 (ref: its
+    image, tallies and seconds; `launches` of `kernel`): the frame again
+    with SRT_PROFILE=1, timed by utils/cli.py:timed_frame, with tallies
+    equal to ref's and the image within 1e-6 RMSE of it (two frames on
+    the card differ only in index_add_'s atomic order); its stage times
+    from CUDA events against the frame's seconds, beside the host's own
+    clock outside the stages. Then the frame (profile off) under
+    utils/cli.py:traced_frame: the trace is written, `kernel` shows
+    device time (its calls printed beside the frame's `launches`), and
+    the busy share is printed."""
+    from sycl_ray_tracer_torch.utils.cli import timed_frame, traced_frame
+
+    dev = cam.center.device
+    ref_img, ref_rays, ref_secs = ref
+    profs = []
+    os.environ["SRT_PROFILE"] = "1"
+    try:
+        (img, rays), secs = timed_frame(
+            lambda: render(scene, cam, **HEADLINE), dev, profs)
+    finally:
+        del os.environ["SRT_PROFILE"]
+    err = rmse(img.cpu().numpy(), ref_img)
+    (p,) = profs
+    frame_ms = secs * 1e3
+    host_out = frame_ms - p["host_stage_ms"]
+    log(f"[stages] {label} 1024x1024 spp64 d10 on {smi}: frame "
+        f"{frame_ms:.3f} ms with SRT_PROFILE=1 ({ref_secs * 1e3:.3f} ms "
+        f"without, phase 7/8/15); stages {p['stage_ms']:.3f} ms on the "
+        f"card (first to last {p['span_ms']:.3f} ms), remainder "
+        f"{frame_ms - p['stage_ms']:.3f} ms; the host's clock outside the "
+        f"stages {host_out:.3f} ms; by stage (ms, share of the frame): "
+        + ", ".join(f"{k} {v:.3f} ({100 * v / frame_ms:.2f} %)"
+                    for k, v in p["stages"].items())
+        + f"; RMSE {err:.3g} against the frame without the profile, "
+        f"tallies {rays.tolist()}")
+    if not (rays.numpy() == ref_rays).all() or err >= 1e-6:
+        raise AssertionError(f"{label}: the profiled frame differs from the "
+                             "frame without the profile")
+    if not (0.5 * frame_ms <= p["stage_ms"] <= frame_ms
+            and frame_ms - p["stage_ms"] <= host_out + 0.05 * frame_ms):
+        raise AssertionError(f"{label}: the stages do not account for the "
+                             "frame")
+
+    work = os.path.join(ROOT, "build", "smoke", "trace",
+                        re.sub(r"\W+", "_", label))
+    (_, rays), secs, st = traced_frame(
+        lambda: render(scene, cam, **HEADLINE), dev, work, 0, log)
+    ran = [(n, ms, c) for n, ms, c in st["kernels"]
+           if f"{kernel}_kernel" in n]
+    kern_ms, calls = sum(k[1] for k in ran), sum(k[2] for k in ran)
+    log(f"[trace] {label} on {smi}: {secs:.6f} s under the profiler; "
+        f"{kernel} {kern_ms:.3f} ms in {calls} calls of the frame's "
+        f"{launches} launches"
+        + ("" if calls == launches else
+           f" (the trace lost {launches - calls} of its records)")
+        + f"; device busy {100 * st['busy']:.2f} % ({st['device_ms']:.3f} "
+        f"ms); trace {os.path.getsize(st['trace'])} bytes")
+    if not (os.path.getsize(st["trace"]) > 0 and kern_ms > 0 and calls > 0
+            and (rays.numpy() == ref_rays).all()):
+        raise AssertionError(f"{label}: the trace shows no device time of "
+                             f"{kernel}, or the frame differs")
+
+
+def phase_stage_split_both(scene, cam, smi: str, wavefront: tuple,
+                           wf_launches: int, megakernel: tuple,
+                           mk_launches: int) -> None:
+    """Phase 23 (c, d) on phase 7's scene: the wavefront and megakernel
+    headline frames (refs and traverse8 launches of 7 and 8)."""
+    from sycl_ray_tracer_torch.models.megakernel import render_megakernel
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+
+    phase_stage_split(render_wavefront, scene, cam, smi,
+                      "sponza_proc scale 2 wavefront", "traverse8",
+                      wf_launches, wavefront)
+    phase_stage_split(render_megakernel, scene, cam, smi,
+                      "sponza_proc scale 2 megakernel", "traverse8",
+                      mk_launches, megakernel)
+
+
+def sweep_totals(scene, host) -> dict:
+    """Phase 23 (b)'s direct renders: {renderer: [total rays of seeds 0
+    .. runs]} at the sweep's config."""
+    from sycl_ray_tracer_torch.models.renderer import get_renderer
+
+    cam = camera(host, SWEEP["width"], SWEEP["height"],
+                 scene.shade_tbl.device)
+    kw = dict(width=SWEEP["width"], height=SWEEP["height"],
+              spp=SWEEP["spp"], max_depth=SWEEP["depth"])
+    return {name: [int(get_renderer(name)(scene, cam, seed=r, **kw)[1].sum())
+                   for r in range(SWEEP["runs"] + 1)]
+            for name in ("wavefront", "megakernel")}
+
+
+def read_sweep(work: str) -> tuple:
+    """The two CSVs benchmark_torch.py wrote in work, header checked."""
+    import csv
+
+    out = []
+    for kind in ("raw", "avg"):
+        with open(os.path.join(work, f"benchmark_torch_{kind}.csv"),
+                  newline="") as f:
+            rows = list(csv.reader(f))
+        if rows[0] != SWEEP_COLUMNS[kind]:
+            raise AssertionError(f"benchmark_torch_{kind}.csv columns "
+                                 f"{rows[0]}")
+        out.append(rows[1:])
+    return tuple(out)
+
+
+def check_sweep(label: str, work: str, stdout: str, refs: dict,
+                scenes, renderers) -> dict:
+    """One benchmark_torch.py sweep's CSVs: every config has runs 0 ..
+    runs, run 0 printed as discarded and left out of the average, and
+    each run's total equal to the direct render of its seed (refs).
+    Returns {(renderer, scene): [seconds of runs 0 ..]}."""
+    import statistics
+
+    raw, avg = read_sweep(work)
+    secs = {}
+    for renderer in renderers:
+        for scene in scenes:
+            rows = [r for r in raw if r[:2] == [renderer, scene]]
+            runs = [int(r[5]) for r in rows]
+            totals = [int(r[8]) for r in rows]
+            (a,) = [r for r in avg if r[:2] == [renderer, scene]]
+            timed = rows[1:]
+            mean = [statistics.mean(float(r[i]) for r in timed)
+                    for i in (6, 7, 8)]
+            want = refs[scene][renderer][:len(rows)]
+            discarded = re.search(
+                rf"{scene} {renderer} \S+ d=\d+ s=\d+ run=0: .* \(warm-up, "
+                r"discarded\)", stdout)
+            log(f"[sweep] {label} {scene} {renderer}: runs {runs}, seconds "
+                + ", ".join(r[6] for r in rows) + f", totals {totals} "
+                f"(direct renders {want}); average of runs 1.. "
+                f"{a[5]} s, {a[6]} Mrays/s")
+            if not (runs == list(range(len(rows))) and totals == want
+                    and discarded and len(rows) > 1
+                    and [float(x) for x in a[5:8]] == mean):
+                raise AssertionError(f"{label} {scene} {renderer}: the sweep's"
+                                     " rows are wrong")
+            secs[(renderer, scene)] = [float(r[6]) for r in rows]
+    return secs
+
+
+def phase_entry_points(smi: str, rays8, refs: dict) -> None:
+    """Phase 23 (a, b, b'): bench_torch.py (BENCH_RUNS=2) on the card,
+    benchmark_torch.py --inproc on SWEEP, and the same cube wavefront
+    config in subprocess mode, each in a process of its own. refs:
+    {scene: sweep_totals(...)}, sponza_proc's from phase 7's scene;
+    the cube's are rendered here."""
+    import shutil
+
+    from sycl_ray_tracer_torch.utils.fixtures import cube_scene_glb
+
+    cube, _, chost = load(cube_scene_glb(), SWEEP["width"], SWEEP["height"],
+                          torch.device("cuda"))
+    refs = dict(refs, cube=sweep_totals(cube, chost))
+    del cube
+    work = os.path.join(ROOT, "build", "smoke", "entry")
+    shutil.rmtree(work, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+
+    def run(name: str, cmd: list, extra_env=None) -> tuple:
+        d = os.path.join(work, name)
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable] + cmd, cwd=d,
+                           env=dict(env, **(extra_env or {})), text=True,
+                           capture_output=True, timeout=300)
+        log(f"[entry] {name}: exit {p.returncode} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if p.returncode != 0:
+            raise AssertionError(f"{name} failed:\n{p.stderr[-4000:]}")
+        return p.stdout, p.stderr
+
+    out, err = run("bench", [os.path.join(ROOT, "bench_torch.py")],
+                   {"BENCH_RUNS": "2"})
+    for line in err.splitlines():
+        log(f"[bench] {line}")
+    head = json.loads(out.strip().splitlines()[-1])
+    log(f"[bench] {out.strip().splitlines()[-1]}")
+    if not (head["n_runs"] == len(head["runs"]) == 2
+            and head["totals"][0] == int(rays8.sum())
+            and smi in head["metric"] and head["value"] == head["median"]):
+        raise AssertionError("bench_torch.py: wrong headline line, or seed "
+                             f"0 counted {head['totals'][0]} rays, not phase "
+                             f"7's {int(rays8.sum())}")
+
+    sweep = [os.path.join(ROOT, "benchmark_torch.py"), "--pairs",
+             f"{SWEEP['depth']}:{SWEEP['spp']}", "--resolutions",
+             f"{SWEEP['width']}x{SWEEP['height']}", "--runs"]
+    out, _ = run("inproc", sweep + [str(SWEEP["runs"]), "--inproc",
+                                    "--scenes", *SWEEP["scenes"],
+                                    "--renderers", "wavefront",
+                                    "megakernel"])
+    inproc = check_sweep("--inproc", os.path.join(work, "inproc"), out, refs,
+                         SWEEP["scenes"], ("wavefront", "megakernel"))
+    out, _ = run("subprocess", sweep + ["1", "--scenes", "cube",
+                                        "--renderers", "wavefront"])
+    sub = check_sweep("subprocess mode", os.path.join(work, "subprocess"),
+                      out, refs, ("cube",), ("wavefront",))
+    key = ("wavefront", "cube")
+    log(f"[sweep] cube wavefront {SWEEP['width']}x{SWEEP['height']} "
+        f"spp{SWEEP['spp']} d{SWEEP['depth']} on {smi}: seconds per run "
+        f"in process {inproc[key]}, one CLI process per run {sub[key]}")
+
+
 def main() -> int:
     smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1546,7 +1786,7 @@ def main() -> int:
 
     # ---- the megakernel on the baked main path (traverse8) ----
     per_wave = max(1, min(64, mk.WAVE_RAYS // (1024 * 1024)))
-    _, mk_rays_sponza, mk_img, mk_secs = phase_headline(
+    mk_launches, mk_rays_sponza, mk_img, mk_secs = phase_headline(
         mk.render_megakernel, scene, cam, smi, "sponza_proc scale 2 "
         "megakernel", traverse8, (traverse5, traverse1),
         waves=-(-64 // per_wave))
@@ -1556,6 +1796,10 @@ def main() -> int:
         raise AssertionError("megakernel and wavefront headline tallies "
                              "differ")
     megakernel_bound(scene, cam, "sponza_proc scale 2 megakernel traverse8")
+    timed_phase("stage split and trace, sponza_proc", phase_stage_split_both,
+                scene, cam, smi, (img8, rays8, secs8), launches8,
+                (mk_img, mk_rays_sponza, mk_secs), mk_launches)
+    sweep_refs = {"sponza_proc": sweep_totals(scene, host)}
 
     # ---- the Morton-heap path (leaf_size 4, traverse1) ----
     t0 = time.perf_counter()
@@ -1618,9 +1862,9 @@ def main() -> int:
     phase_masked(kern, plain, *bounce1m, smi,
                  "traverse5 itf minecraft_proc bounce", world_ties=True)
     del prim1m, bounce1m
-    launches5, rays5 = phase_headline(render_wavefront, scene, cam, smi,
-                                      "minecraft_proc --shared-instances",
-                                      traverse5, (traverse8, traverse1))[:2]
+    launches5, rays5, img5, secs5 = phase_headline(
+        render_wavefront, scene, cam, smi, "minecraft_proc --shared-instances",
+        traverse5, (traverse8, traverse1))
     report["traverse5"] = dict(launches=launches5, max_abs_err=err5,
                                times=times["bounce"], bound=b5)
 
@@ -1635,6 +1879,10 @@ def main() -> int:
                              "headline tallies differ")
     megakernel_bound(scene, cam, "minecraft_proc --shared-instances "
                      "megakernel traverse5", "traverse5", stride=8)
+    timed_phase("stage split and trace, minecraft_proc", phase_stage_split,
+                render_wavefront, scene, cam, smi,
+                "minecraft_proc --shared-instances wavefront", "traverse5",
+                launches5, (img5, rays5, secs5))
     del scene, cam, ih, kern, plain
     torch.cuda.empty_cache()
 
@@ -1650,6 +1898,9 @@ def main() -> int:
     timed_phase("sharded", phase_sharded, smi, sponza_glb,
                 {"wavefront": (img8, rays8, secs8),
                  "megakernel": (mk_img, mk_rays_sponza, mk_secs)})
+    torch.cuda.empty_cache()
+    timed_phase("measuring entry points", phase_entry_points, smi, rays8,
+                sweep_refs)
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", **KERNELS[name],

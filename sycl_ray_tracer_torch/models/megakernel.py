@@ -40,6 +40,7 @@ from sycl_ray_tracer_torch.models.camera import Camera, generate_rays
 from sycl_ray_tracer_torch.models.wavefront import frame_pixels
 from sycl_ray_tracer_torch.ops import rng as _rng
 from sycl_ray_tracer_torch.ops.vec import V3, linear_to_gamma
+from sycl_ray_tracer_torch.utils import profile as _profile
 
 # Lanes per wave: whole camera samples of the pixels up to 8M lanes (the
 # JAX engine's default wave); more pixels than that run one sample per
@@ -48,31 +49,39 @@ WAVE_RAYS = 8 << 20
 
 
 def _wave(scene, cam: Camera, seed: int, sample_offset: int, rays,
-          *, pixels, max_depth: int, waves: int, rr: bool) -> torch.Tensor:
+          *, pixels, max_depth: int, waves: int, rr: bool,
+          prof=None) -> torch.Tensor:
     """`waves` samples of each of the R pixels (px, py, lane) = `pixels`
     from sample_offset on; adds the per-bounce tallies into rays
     [max_depth] (numpy int64) and returns the wave's linear color summed
-    over its samples, [R, 3]."""
+    over its samples, [R, 3]. prof: the frame's FrameProfile, or None
+    (utils/profile.py)."""
     px, py, lane = pixels
     r = lane.shape[0]
-    ids = torch.arange(waves * r, dtype=torch.int64, device=lane.device)
-    idx = ids % r
-    key = _rng.make_key(_rng.make_key(seed, sample_offset + ids // r),
-                        lane[idx])
-    o, d = generate_rays(cam, px[idx], py[idx], key)
-    zero = torch.zeros_like(o.x)
-    one = torch.ones_like(o.x)
-    st = _trace.PathState(o=o, d=d, att=V3(one, one, one),
-                          rad=V3(zero, zero, zero),
-                          result=V3(zero, zero, zero),
-                          done=torch.zeros_like(o.x, dtype=torch.bool))
+    with _profile.stage(prof, "generate"):
+        ids = torch.arange(waves * r, dtype=torch.int64, device=lane.device)
+        idx = ids % r
+        key = _rng.make_key(_rng.make_key(seed, sample_offset + ids // r),
+                            lane[idx])
+        o, d = generate_rays(cam, px[idx], py[idx], key)
+        zero = torch.zeros_like(o.x)
+        one = torch.ones_like(o.x)
+        st = _trace.PathState(o=o, d=d, att=V3(one, one, one),
+                              rad=V3(zero, zero, zero),
+                              result=V3(zero, zero, zero),
+                              done=torch.zeros_like(o.x, dtype=torch.bool))
     for i in range(max_depth):
-        live = int((~st.done).sum())
+        with _profile.stage(prof, "count"):
+            live = int((~st.done).sum())
         if live == 0:
             break
         rays[i] += live
-        st = _trace.trace_step(scene, st, key, i + 2, rr=rr)
-    return torch.stack(st.result, dim=1).view(waves, r, 3).sum(dim=0)
+        st = _trace.trace_step(scene, st, key, i + 2, rr=rr, prof=prof)
+        if prof is not None:
+            prof.row(f"wave@{sample_offset}x{waves} bounce {i}",
+                     f"live {live}")
+    with _profile.stage(prof, "accumulate"):
+        return torch.stack(st.result, dim=1).view(waves, r, 3).sum(dim=0)
 
 
 def accumulate_megakernel(scene, cam: Camera, px: torch.Tensor,
@@ -88,12 +97,13 @@ def accumulate_megakernel(scene, cam: Camera, px: torch.Tensor,
     waves = max(1, min(spp, WAVE_RAYS // r))
     acc = torch.zeros((r, 3), dtype=torch.float32, device=lane.device)
     rays = np.zeros((max_depth,), np.int64)
+    prof = _profile.start("megakernel", lane.device)
     s = 0
     while s < spp:
         w = min(waves, spp - s)
         acc += _wave(scene, cam, seed, sample_offset + s, rays,
                      pixels=(px, py, lane), max_depth=max_depth, waves=w,
-                     rr=rr)
+                     rr=rr, prof=prof)
         s += w
     return acc, torch.from_numpy(rays)
 

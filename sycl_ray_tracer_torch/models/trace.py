@@ -26,6 +26,7 @@ from sycl_ray_tracer_torch.ops.traverse1 import traverse1
 from sycl_ray_tracer_torch.ops.traverse5 import traverse5
 from sycl_ray_tracer_torch.ops.traverse8 import traverse8
 from sycl_ray_tracer_torch.ops.vec import V3, normalize, where
+from sycl_ray_tracer_torch.utils import profile as _profile
 
 # Russian roulette starts at this bounce (rr=True paths only) and
 # clamps survival probability to at least this floor.
@@ -134,53 +135,58 @@ def shade_lanes(scene, hit: Hit):
 
 
 def trace_step(scene, state: PathState, key: torch.Tensor,
-               bounce_counter: int, rr: bool = False) -> PathState:
+               bounce_counter: int, rr: bool = False,
+               prof=None) -> PathState:
     """Advance every lane that is not done by one path vertex; done
     lanes keep their state. Bounce i uses RNG counter i + 2 (0 and 1
     are the camera jitter). The expressions are those of the JAX
     package's trace_step (trace.py:466-519), in the same order, and per
     lane those of models/wavefront.py:_bounce, so that both engines
-    compute the same paths."""
+    compute the same paths. The stages run in utils/profile.py:stage
+    (prof: the frame's FrameProfile, or None)."""
     o, d, att, rad = state.o, state.d, state.att, state.rad
     live = ~state.done
 
-    hit = intersect_scene(scene, o, d, active=live)
-    miss = hit.tri < 0
+    with _profile.stage(prof, "intersect"):
+        hit = intersect_scene(scene, o, d, active=live)
+        miss = hit.tri < 0
 
-    sky = scene.sky_color
-    res_miss = att * (V3(sky[0], sky[1], sky[2]) + rad)  # trace_ray.hpp:25-27
+    with _profile.stage(prof, "shade"):
+        sky = scene.sky_color
+        # trace_ray.hpp:25-27
+        res_miss = att * (V3(sky[0], sky[1], sky[2]) + rad)
+        # shading data for hit lanes (garbage on miss lanes, masked)
+        normal, uv_u, uv_v, mat = shade_lanes(scene, hit)
+        rad_hit = rad + mat.emissive  # trace_ray.hpp:64
+        res_absorb = att * rad_hit  # trace_ray.hpp:77-79
 
-    # shading data for hit lanes (garbage on miss lanes, masked)
-    normal, uv_u, uv_v, mat = shade_lanes(scene, hit)
-    rad_hit = rad + mat.emissive  # trace_ray.hpp:64
+    with _profile.stage(prof, "scatter"):
+        d_unit = normalize(d, eps=1e-20)
+        cont, new_dir, s_att = mats.scatter(scene, mat, d_unit, normal,
+                                            uv_u, uv_v, key, bounce_counter)
 
-    d_unit = normalize(d, eps=1e-20)
-    cont, new_dir, s_att = mats.scatter(scene, mat, d_unit, normal,
-                                        uv_u, uv_v, key, bounce_counter)
+        hit_m = live & ~miss
+        scat_m = hit_m & cont
+        term_miss = live & miss
+        term_abs = hit_m & ~cont
 
-    res_absorb = att * rad_hit  # trace_ray.hpp:77-79
+        new_att_s = att * s_att
+        term_rr = torch.zeros_like(term_abs)
+        if rr and bounce_counter - 2 >= RR_START:
+            survive, att_rr = rr_survive(new_att_s, key, bounce_counter)
+            term_rr = scat_m & ~survive
+            new_att_s = where(scat_m & survive, att_rr, new_att_s)
+            scat_m = scat_m & ~term_rr
 
-    hit_m = live & ~miss
-    scat_m = hit_m & cont
-    term_miss = live & miss
-    term_abs = hit_m & ~cont
+        new_o = where(scat_m, o + d * hit.t, o)
+        new_d = where(scat_m, new_dir, d)
+        new_att = where(scat_m, new_att_s, att)
+        new_rad = where(scat_m, rad_hit, rad)
 
-    new_att_s = att * s_att
-    term_rr = torch.zeros_like(term_abs)
-    if rr and bounce_counter - 2 >= RR_START:
-        survive, att_rr = rr_survive(new_att_s, key, bounce_counter)
-        term_rr = scat_m & ~survive
-        new_att_s = where(scat_m & survive, att_rr, new_att_s)
-        scat_m = scat_m & ~term_rr
-
-    new_o = where(scat_m, o + d * hit.t, o)
-    new_d = where(scat_m, new_dir, d)
-    new_att = where(scat_m, new_att_s, att)
-    new_rad = where(scat_m, rad_hit, rad)
-
-    # an RR kill contributes like an absorb: att * radiance-so-far
-    result = where(term_miss, res_miss,
-                   where(term_abs | term_rr, res_absorb, state.result))
-    done = state.done | term_miss | term_abs | term_rr
+    with _profile.stage(prof, "accumulate"):
+        # an RR kill contributes like an absorb: att * radiance-so-far
+        result = where(term_miss, res_miss,
+                       where(term_abs | term_rr, res_absorb, state.result))
+        done = state.done | term_miss | term_abs | term_rr
     return PathState(o=new_o, d=new_d, att=new_att, rad=new_rad,
                      result=result, done=done)

@@ -15,7 +15,12 @@ hardcoded 1920x1080 (main.cpp:36). Additions: --seed, --output, --rr,
 --scale (the reference Scene's global_scale), --warmup, --device,
 --devices, --shared-instances, and procedural scene names (sponza_proc
 / minecraft_proc / instanced_proc / triangle / cube / dielectric) for
-when no .glb is at hand.
+when no .glb is at hand; instanced_proc has SRT_INSTANCED_R cubes
+(1000 by default), as in the JAX CLI.
+
+Measurement switches, as in the JAX CLI: SRT_PROFILE=1 prints each
+frame's time by stage and bounce (utils/profile.py); SRT_TRACE_DIR=<dir>
+records a torch.profiler trace of the timed frame (traced_frame).
 
 --shared-instances loads the scene two-level, as the reference's
 Embree BLAS per primitive + TLAS of instances (scene.cpp:404-439): one
@@ -93,7 +98,9 @@ def resolve_scene_bytes(scene_path: str) -> bytes:
         "dielectric": fixtures.dielectric_scene_glb,
         "sponza_proc": procgen.sponza_like_glb,
         "minecraft_proc": procgen.minecraft_like_glb,
-        "instanced_proc": fixtures.instanced_scene_glb,
+        # SRT_INSTANCED_R cubes (the JAX CLI's knob), 1000 by default
+        "instanced_proc": lambda: fixtures.instanced_scene_glb(
+            int(os.environ.get("SRT_INSTANCED_R", "1000"))),
     }
     if scene_path in named:
         return named[scene_path]()
@@ -133,12 +140,16 @@ def load_scene(scene_bytes: bytes, device, shared_instances: bool,
     return build_device_scene(host, leaf_size, device=device), host
 
 
-def timed_frame(run, device):
+def timed_frame(run, device, profiles: list | None = None):
     """(run(), seconds): the time of a frame from a barrier of the ranks
     (under --devices) and a synchronize of the device before it to a
-    synchronize after it."""
+    synchronize after it. Then, with SRT_PROFILE=1, prints the stage
+    profile of the frames rendered since the last report
+    (utils/profile.py:report) and adds them to `profiles` if given."""
     import torch
     import torch.distributed as dist
+
+    from sycl_ray_tracer_torch.utils import profile
 
     def sync():
         if device.type == "cuda":
@@ -150,7 +161,83 @@ def timed_frame(run, device):
     begin = time.perf_counter()
     out = run()
     sync()
-    return out, time.perf_counter() - begin
+    secs = time.perf_counter() - begin
+    read = profile.report()
+    if profiles is not None:
+        profiles.extend(read)
+    return out, secs
+
+
+def card_label(device) -> str:
+    """The card's name and power limit as nvidia-smi reports them
+    (name, power.limit), or torch's name of the device where nvidia-smi
+    cannot be run; "cpu" for the CPU."""
+    import subprocess
+
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    try:
+        p = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={index}"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        p = None
+    if p is not None and p.returncode == 0 and p.stdout.strip():
+        return p.stdout.strip().splitlines()[0]
+    return f"{torch.cuda.get_device_name(index)}, power limit not read"
+
+
+def traced_frame(run, device, trace_dir: str, rank: int = 0, log=print):
+    """timed_frame(run, device) under torch.profiler (CPU activity, and
+    CUDA activity on the card): writes the Chrome trace to
+    <trace_dir>/trace_rank{rank}.json and logs the 8 device activities
+    (kernels, copies, sets) with the most device time, the device time
+    of each srt.<stage> range, and the device's busy share over the
+    frame (summed device time over the frame's seconds) beside the
+    card's name and power limit. Returns (run(), seconds, stats) with
+    stats {"trace": path, "device_ms", "busy" (None on the CPU),
+    "kernels": [(name, ms, count)] by device time, "stages": {range:
+    device ms}}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        out, secs = timed_frame(run, device)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"trace_rank{rank}.json")
+    prof.export_chrome_trace(path)
+    kernels, stages = [], {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        if getattr(e, "is_user_annotation", False):
+            stages[e.key] = ms
+        else:
+            kernels.append((e.key, ms, e.count))
+    kernels.sort(key=lambda k: -k[1])
+    device_ms = sum(k[1] for k in kernels)
+    busy = device_ms / (secs * 1e3) if device.type == "cuda" else None
+    log(f"[trace] {path}: {secs:.6f} s frame on {card_label(device)}")
+    for name, ms, count in kernels[:8]:
+        log(f"[trace] {ms:10.3f} ms in {count:6d} calls: {name[:120]}")
+    if stages:
+        log("[trace] device time of the stage ranges: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in sorted(stages.items())))
+    if busy is not None:
+        log(f"[trace] device busy {device_ms:.3f} ms of {secs * 1e3:.3f} ms "
+            f"= {100 * busy:.2f} %")
+    return out, secs, {"trace": path, "device_ms": device_ms, "busy": busy,
+                       "kernels": kernels, "stages": stages}
 
 
 def render_frame(rank: int, device, args) -> int:
@@ -189,7 +276,14 @@ def render_frame(rank: int, device, args) -> int:
 
     if args.warmup:
         run(args.seed + 1)
-    (img, rays), secs = timed_frame(lambda: run(args.seed), device)
+    # SRT_TRACE_DIR=<dir>: a profiler trace of the timed frame, the
+    # port's counterpart of the JAX CLI's jax.profiler trace
+    trace_dir = os.environ.get("SRT_TRACE_DIR")
+    if trace_dir:
+        (img, rays), secs, _ = traced_frame(lambda: run(args.seed), device,
+                                            trace_dir, rank, log)
+    else:
+        (img, rays), secs = timed_frame(lambda: run(args.seed), device)
     total_rays = int(rays.sum())
     log(f"Time measured: {secs:.6f} seconds")
     log(f"Total rays: {total_rays}")

@@ -1,9 +1,10 @@
 """Tests of the port that need the card: the CUDA kernels against their
 plain versions and their host builds (at ray counts around a warp, and
-under masks), the wrappers' input checks, and small renders (baked,
+under masks), the wrappers' input checks, small renders (baked,
 Morton heap through the megakernel, and two-level instanced) on cuda
-against the same renders on the cpu. They
-skip without a CUDA device.
+against the same renders on the cpu, and the measuring entry points (a
+tiny in-process sweep and a profiler trace). They skip without a CUDA
+device.
 This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -509,3 +510,36 @@ def test_two_gloo_ranks_on_one_card_match_single(cuda, tmp_path):
         assert err < 1e-6, (job, err)
         assert torch.equal(rays, ref_rays), (job, rays, ref_rays)
         check_rank_launches(str(job), "traverse8", job, rays, launches)
+
+
+def test_sweep_and_trace_on_card(cuda, tmp_path, monkeypatch):
+    """benchmark_torch.py --inproc on the card at a tiny size (each
+    run's total that of a render of its seed), and the CLI's
+    traced_frame: the trace holds one traverse8 launch per bounce with
+    device time, and the busy share lies in (0, 1]."""
+    import csv
+
+    from benchmark_torch import main as sweep
+    from sycl_ray_tracer_torch.utils.cli import traced_frame
+
+    kw = dict(width=64, height=48, spp=2, max_depth=4)
+    monkeypatch.chdir(tmp_path)
+    sweep(["--inproc", "--scenes", "cube", "--pairs", "4:2",
+           "--resolutions", "64x48", "--runs", "1", "--renderers",
+           "wavefront", "megakernel"])
+    with open(tmp_path / "benchmark_torch_raw.csv", newline="") as f:
+        raw = list(csv.reader(f))[1:]
+    host = load_glb(tfix.cube_scene_glb())
+    scene = build_device_scene(host, device=cuda)
+    cam = make_camera(64, 48, host.camera_position, host.camera_direction,
+                      host.camera_focal_length, device=cuda)
+    want = [int(render_wavefront(scene, cam, seed=r, **kw)[1].sum())
+            for r in range(2)]
+    assert [int(r[8]) for r in raw] == want * 2
+    (_, rays), secs, st = traced_frame(
+        lambda: render_wavefront(scene, cam, seed=0, **kw), cuda,
+        str(tmp_path / "trace"))
+    ran = [k for k in st["kernels"] if "traverse8_kernel" in k[0]]
+    assert sum(k[2] for k in ran) == int((rays > 0).sum())
+    assert sum(k[1] for k in ran) > 0 and 0 < st["busy"] <= 1.0
+    assert (tmp_path / "trace" / "trace_rank0.json").stat().st_size > 0

@@ -48,6 +48,10 @@ _MAIN_PATH_MODULES = [
     "sycl_ray_tracer_torch.models.renderer",
     "sycl_ray_tracer_torch.parallel",
     "sycl_ray_tracer_torch.parallel.mesh",
+    "sycl_ray_tracer_torch.utils.profile",
+    # the measuring entry points at the repo's root
+    "bench_torch",
+    "benchmark_torch",
 ]
 
 # refuses every import of PIL, as on a machine without Pillow
