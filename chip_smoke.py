@@ -109,7 +109,10 @@ Phases (any failure raises and exits non-zero):
    scale (2, 0.5, 3), baked and two-level; the decoded textures' sha256
    equal the digests the CPU tests pinned against Pillow, and both
    forms render on the card with both engines within the gate of 19
-   against the numpy oracle; prints whether Pillow is installed here;
+   against the numpy oracle; then the Python ingest
+   (load_glb(use_native=False)) against the native one on sponza_proc
+   and the textured fixture, within tests/test_native.py's tolerances;
+   prints whether Pillow is installed here;
 21. sharded rendering on the one card (parallel/mesh.py): two ranks
    share cuda:0 over gloo (NCCL refuses two ranks on one card) and
    render, each case against its single-device frame in this process
@@ -146,7 +149,26 @@ Phases (any failure raises and exits non-zero):
    printed as discarded and left out of the average, each run's total
    equal to a direct render of its seed, and (b') the cube wavefront
    config in subprocess mode, with the seconds of both modes printed.
-Phases 4c and 17-23 print their seconds.
+24. SBVH spatial splits (SRT_SBVH=1, after 19): sponza_proc scale 2
+   built with object splits and with SBVH (references, leaves, inner
+   nodes, depth, build seconds, validate, table bytes); every slot of a
+   duplicated triangle has its first slot's Woop row and Morton slot;
+   traverse8 on the SBVH tables against plain (the rules of 3) and
+   against the object tree in Morton slots (ids equal outside ties and
+   near-origin hits, see same_hits_in_morton) on the rays of 3 and 4,
+   its times at 1M rays, in turns with the object tree's, and both
+   trees' bounds and work per ray on the 1M primary and bounce rays;
+   traverse5 MT on the SBVH slot rows as 5; the headline frame of 7 on
+   the SBVH tree (tallies within the flip tail of 7's, the image within
+   the gate of 19 against 7's), then the object and SBVH headline
+   frames timed in turns (A, B, B, A); the gate frame of 18 on
+   the SBVH tree against 18's LBVH frame; minecraft_proc's BLAS with
+   SRT_SBVH=1 (num_refs per primitive, the tables against the
+   object-split ones, traverse5 itf against plain on 1M bounce rays,
+   its times and bound); the straddler scene of utils/fixtures.py
+   (splits must fire): traverse8 and traverse5 MT against plain and,
+   after the SAH order, against intersect_brute_np, ids equal exactly.
+Phases 4c and 17-24 print their seconds.
 
 Every headline frame also reports its kernel's time within the frame,
 from CUDA events around each launch.
@@ -159,6 +181,7 @@ run's inputs), then {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -690,27 +713,31 @@ def camera(host, width: int, height: int, device):
                        device=device)
 
 
-def sah_mt_rows(host, device) -> torch.Tensor:
-    """The MT rows (v0, e1, e2) of the baked SAH tree's slots: traverse5's
-    MT-mode table for a baked scene."""
+def sah_mt_rows(host, device, spatial: bool = False) -> torch.Tensor:
+    """The MT rows (v0, e1, e2) of the baked SAH tree's slots (with SBVH
+    spatial splits if `spatial`): traverse5's MT-mode table for a baked
+    scene."""
     from sycl_ray_tracer_torch.ops import sah
 
-    order = sah.build_sah(host.tri_v, 8).order
+    order = sah.build_sah(host.tri_v, 8, spatial=spatial).order
     return torch.from_numpy(sah.slot_rows(
         sah.leaf_rows(host.tri_v, order, 8), 8)).to(device)
 
 
-def phase_mt_mode(scene, host, rays: dict, rays1m: dict, smi: str) -> float:
-    """traverse5 in MT mode on the baked SAH tree: against its plain
-    version, and against traverse8 (Woop) on the same rays; then its
-    times against plain at the 1M rays of `rays1m`, and the bound of the
-    1M bounce launch."""
-    mt = sah_mt_rows(host, scene.bvh_nodes.device)
+def phase_mt_mode(scene, host, rays: dict, rays1m: dict, smi: str,
+                  spatial: bool = False) -> float:
+    """traverse5 in MT mode on the baked SAH tree (the SBVH tree with
+    `spatial`, as `scene` was built): against its plain version, and
+    against traverse8 (Woop) on the same rays; then its times against
+    plain at the 1M rays of `rays1m`, and the bound of the 1M bounce
+    launch."""
+    mt = sah_mt_rows(host, scene.bvh_nodes.device, spatial)
+    tag = " SBVH" if spatial else ""
     kern, plain = kernel_pair("traverse5", scene, mt=mt)
     k8, _ = kernel_pair("traverse8", scene)
     err = 0.0
     for label, (o, d) in rays.items():
-        err = max(err, compare_hits(kern, plain, o, d, f"traverse5 MT "
+        err = max(err, compare_hits(kern, plain, o, d, f"traverse5 MT{tag} "
                                     f"sponza {label}"))
         a, b = kern(o, d), k8(o, d)
         ha, hb = (a.tri >= 0).cpu().numpy(), (b.tri >= 0).cpu().numpy()
@@ -718,16 +745,16 @@ def phase_mt_mode(scene, host, rays: dict, rays1m: dict, smi: str) -> float:
         both = ha & hb
         ta, tb = a.t.cpu().numpy()[both], b.t.cpu().numpy()[both]
         p99 = float(np.percentile(np.abs(ta - tb) / np.abs(tb), 99))
-        log(f"[kernel] traverse5 MT vs traverse8 sponza {label}: hit/miss "
-            f"agreement {agree:.6f}, p99 relative |dt| {p99:.3g}")
+        log(f"[kernel] traverse5 MT vs traverse8{tag} sponza {label}: "
+            f"hit/miss agreement {agree:.6f}, p99 relative |dt| {p99:.3g}")
         if agree < 0.999 or p99 >= 5e-4:
-            raise AssertionError(f"traverse5 MT vs traverse8 {label}: "
+            raise AssertionError(f"traverse5 MT vs traverse8{tag} {label}: "
                                  "Woop and MT disagree")
-    phase_times(kern, plain, rays1m, smi, "traverse5 MT sponza_proc")
+    phase_times(kern, plain, rays1m, smi, f"traverse5 MT{tag} sponza_proc")
     ms, by = bound("traverse5", scene, kern, *rays1m["bounce"],
-                   "traverse5 MT sponza_proc bounce 1M", mt=mt)
-    log(f"[bound] traverse5 MT sponza_proc bounce 1M: {ms:.4f} ms, bound "
-        f"by {by}")
+                   f"traverse5 MT{tag} sponza_proc bounce 1M", mt=mt)
+    log(f"[bound] traverse5 MT{tag} sponza_proc bounce 1M: {ms:.4f} ms, "
+        f"bound by {by}")
     return err
 
 
@@ -1008,7 +1035,7 @@ def phase_deep_tree(smi: str) -> None:
         raise AssertionError("the deep frame is not finite or is black")
 
 
-def phase_sponza_gate(smi: str) -> None:
+def phase_sponza_gate(smi: str) -> tuple:
     """The port's own Sponza-scale gate (tests/test_render.py:149-183):
     sponza_like_glb(scale=1), 64x48, 64 spp, depth 6, wavefront frames
     on three trees, each timed after a 1-spp warm-up: the SAH tree
@@ -1020,7 +1047,20 @@ def phase_sponza_gate(smi: str) -> None:
     1M sponza_proc bounce rays). The LBVH is held against each kernel's
     frame with the untrimmed ceiling of tests/test_render.py, RMSE
     < 4e-3, flips under 0.5 % of pixels, p99 of the per-pixel max |diff|
-    < 0.02, total rays within 1 % and image std > 0.05."""
+    < 0.02, total rays within 1 % and image std > 0.05. Returns the
+    LBVH frame, which phase 24 holds the SBVH tree's frame against."""
+    out = {name: gate_frame(name, k, isect, smi)
+           for name, k, isect in (("SAH", 8, "auto"), ("heap", 4, "auto"),
+                                  ("LBVH", 8, "lbvh"))}
+    for ref in ("SAH", "heap"):
+        gate_check(ref, out[ref], out["LBVH"])
+    return out["LBVH"]
+
+
+def gate_frame(name: str, k: int, isect: str, smi: str) -> tuple:
+    """One frame of the Sponza gate, timed after a 1-spp warm-up, on the
+    tree that build_device_scene makes of sponza_like_glb(scale=1) at
+    leaf size k with intersector isect: (image, tallies) on the host."""
     from sycl_ray_tracer_torch.models.wavefront import render_wavefront
     from sycl_ray_tracer_torch.ops.traverse import traverse
     from sycl_ray_tracer_torch.ops.traverse1 import traverse1
@@ -1028,42 +1068,41 @@ def phase_sponza_gate(smi: str) -> None:
     from sycl_ray_tracer_torch.utils.fixtures import load_pair
     from sycl_ray_tracer_torch.utils.procgen import sponza_like_glb
 
-    glb = sponza_like_glb(scale=1)
-    cuda = torch.device("cuda")
     kw = dict(width=64, height=48, spp=64, max_depth=6, seed=0)
-    out = {}
-    for name, k, isect in (("SAH", 8, "auto"), ("heap", 4, "auto"),
-                           ("LBVH", 8, "lbvh")):
-        scene, host, cam = load_pair(glb, 64, 48, leaf_size=k, device=cuda,
-                                     intersector=isect)
-        render_wavefront(scene, cam, **dict(kw, spp=1, seed=1))
-        traverse8.launches = traverse1.launches = traverse.steps = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img, rays = render_wavefront(scene, cam, **kw)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        log(f"[gate] sponza_like_glb(scale=1) ({host.num_triangles} "
-            f"triangles) {name} 64x48 spp64 d6 on {smi}: {secs:.4f} s "
-            f"({int(rays.sum()) / secs / 1e6:.3f} Mrays/s), tallies "
-            f"{rays.tolist()}, traverse8 launches {traverse8.launches}, "
-            f"traverse1 launches {traverse1.launches}, LBVH steps "
-            f"{traverse.steps}")
-        out[name] = (img.cpu().numpy(), rays.numpy())
-    for ref in ("SAH", "heap"):
-        (a, ra), (b, rb) = out[ref], out["LBVH"]
-        err = rmse(a, b)
-        d = np.abs(a - b).max(axis=-1)
-        p99 = float(np.percentile(d, 99))
-        flips = float((d > FLIP_THRESH).mean())
-        dr = abs(int(ra.sum()) - int(rb.sum())) / int(ra.sum())
-        log(f"[gate] {ref} vs LBVH: untrimmed RMSE {err:.4g}, p99 max "
-            f"|diff| {p99:.4g}, flips {flips:.5f}, total rays differ by "
-            f"{dr:.5f}, std {b.std():.4f}")
-        if not (err < RMSE_UNTRIMMED_GATE and p99 < 0.02 and dr < 0.01
-                and b.std() > 0.05 and flips < FLIP_FRACTION_MAX):
-            raise AssertionError(f"the Sponza-scale gate failed: {ref} vs "
-                                 "LBVH")
+    scene, host, cam = load_pair(sponza_like_glb(scale=1), 64, 48,
+                                 leaf_size=k, device=torch.device("cuda"),
+                                 intersector=isect)
+    render_wavefront(scene, cam, **dict(kw, spp=1, seed=1))
+    traverse8.launches = traverse1.launches = traverse.steps = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, rays = render_wavefront(scene, cam, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"[gate] sponza_like_glb(scale=1) ({host.num_triangles} "
+        f"triangles) {name} 64x48 spp64 d6 on {smi}: {secs:.4f} s "
+        f"({int(rays.sum()) / secs / 1e6:.3f} Mrays/s), tallies "
+        f"{rays.tolist()}, traverse8 launches {traverse8.launches}, "
+        f"traverse1 launches {traverse1.launches}, LBVH steps "
+        f"{traverse.steps}")
+    return img.cpu().numpy(), rays.numpy()
+
+
+def gate_check(ref: str, frame: tuple, lbvh: tuple) -> None:
+    """A kernel's gate frame against the LBVH's (phase_sponza_gate)."""
+    (a, ra), (b, rb) = frame, lbvh
+    err = rmse(a, b)
+    d = np.abs(a - b).max(axis=-1)
+    p99 = float(np.percentile(d, 99))
+    flips = float((d > FLIP_THRESH).mean())
+    dr = abs(int(ra.sum()) - int(rb.sum())) / int(ra.sum())
+    log(f"[gate] {ref} vs LBVH: untrimmed RMSE {err:.4g}, p99 max "
+        f"|diff| {p99:.4g}, flips {flips:.5f}, total rays differ by "
+        f"{dr:.5f}, std {b.std():.4f}")
+    if not (err < RMSE_UNTRIMMED_GATE and p99 < 0.02 and dr < 0.01
+            and b.std() > 0.05 and flips < FLIP_FRACTION_MAX):
+        raise AssertionError(f"the Sponza-scale gate failed: {ref} vs "
+                             "LBVH")
 
 
 def phase_oracle_gate(smi: str) -> None:
@@ -1104,8 +1143,10 @@ def phase_oracle_gate(smi: str) -> None:
 
 def ingest_child() -> None:
     """Phase 20's body, in a subprocess that refuses PIL: the resized
-    textures' digests, baked and two-level at INGEST_SCALE, and both
-    forms rendered on the card with both engines against the oracle."""
+    textures' digests, baked and two-level at INGEST_SCALE, both forms
+    rendered on the card with both engines against the oracle, and the
+    Python ingest against the native one on sponza_proc and the textured
+    fixture."""
     import hashlib
 
     from sycl_ray_tracer_torch.models.instanced import (
@@ -1115,6 +1156,7 @@ def ingest_child() -> None:
     from sycl_ray_tracer_torch.models.scene import build_device_scene
     from sycl_ray_tracer_torch.models.wavefront import render_wavefront
     from sycl_ray_tracer_torch.utils import fixtures
+    from sycl_ray_tracer_torch.utils.cli import resolve_scene_bytes
     from sycl_ray_tracer_torch.utils.gltf import load_glb
     from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
 
@@ -1152,8 +1194,33 @@ def ingest_child() -> None:
                          "oracle")
             if img.mean() < 0.01:
                 raise AssertionError("the resized-texture frame is black")
+    for label, glb in (("sponza_proc", resolve_scene_bytes("sponza_proc")),
+                       ("textured", fixtures.textured_scene_glb())):
+        python_vs_native_ingest(label, glb)
     if "PIL" in sys.modules:
         raise AssertionError("PIL was imported")
+
+
+def python_vs_native_ingest(label: str, glb: bytes) -> None:
+    """The Python ingest (load_glb(use_native=False)) against the native
+    one on the same file (ingest_mismatch)."""
+    from sycl_ray_tracer_torch.utils.gltf import ingest_mismatch, load_glb
+
+    t0 = time.perf_counter()
+    nat = load_glb(glb)
+    t1 = time.perf_counter()
+    py = load_glb(glb, use_native=False)
+    t2 = time.perf_counter()
+    bad = ingest_mismatch(nat, py)
+    bits = [f for f in ("tri_v", "tri_n", "tri_uv", "tri_mat", "textures")
+            if np.array_equal(getattr(nat, f), getattr(py, f))]
+    log(f"[ingest] {label}: Python ingest {py.num_triangles} triangles in "
+        f"{t2 - t1:.2f} s, native {nat.num_triangles} in {t1 - t0:.2f} s; "
+        f"within test_native's tolerances: {not bad}; equal bit for bit: "
+        f"{', '.join(bits) or 'none'}")
+    if bad:
+        raise AssertionError(f"{label}: the Python and native ingests "
+                             f"differ: {bad}")
 
 
 def phase_side_processes() -> None:
@@ -1732,6 +1799,290 @@ def phase_entry_points(smi: str, rays8, refs: dict) -> None:
         f"in process {inproc[key]}, one CLI process per run {sub[key]}")
 
 
+@contextlib.contextmanager
+def sbvh_env(on: bool):
+    """SRT_SBVH=1 (on) or unset, as a user asks for spatial splits, for
+    the builds inside the block; restored after."""
+    old = os.environ.pop("SRT_SBVH", None)
+    if on:
+        os.environ["SRT_SBVH"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("SRT_SBVH", None)
+        if old is not None:
+            os.environ["SRT_SBVH"] = old
+
+
+# Where two trees' Woop hits may part: a ray leaving a surface can meet
+# a neighbouring triangle within Woop's rounding of its origin, at a t
+# just past TNEAR, and whether that hit counts depends on whether the
+# point lies inside the leaf box the walk enters, which differs between
+# an object-split and a clipped SBVH leaf. On 1M sponza_proc bounce rays
+# (CPU, plain walks) 29 rays part so, each with one hit below 0.0034.
+NEAR_ORIGIN_T = 1e-2
+NEAR_ORIGIN_SHARE = 1e-4
+
+
+def same_hits_in_morton(a, b, label: str) -> None:
+    """Two trees' hits on the same rays, both in canonical Morton slots
+    (intersect_scene applies each tree's bvh_remap), with the same leaf
+    arithmetic (Woop rows depend only on the triangle): ids and hit/miss
+    equal outside 1e-6-relative t ties and outside near-origin hits (one
+    of the two hits at t < NEAR_ORIGIN_T, on at most NEAR_ORIGIN_SHARE
+    of the rays), and t equal bit for bit where the ids agree."""
+    ta, tb = a.t.cpu().numpy(), b.t.cpu().numpy()
+    ia, ib = a.tri.cpu().numpy(), b.tri.cpu().numpy()
+    same = ia == ib
+    tie = (ia >= 0) & (ib >= 0) & (np.abs(ta - tb) <= 1e-6 * np.abs(tb))
+    near = ~same & ~tie & (np.minimum(ta, tb) < NEAR_ORIGIN_T)
+    log(f"[sbvh] {label}: {(ib >= 0).mean():.4f} hit, "
+        f"{int((~same & tie).sum())} ids differ at ties, "
+        f"{int(near.sum())} at a near-origin hit (t up to "
+        f"{np.minimum(ta, tb)[near].max() if near.any() else 0.0:.3g}), "
+        f"{int((~same & ~tie & ~near).sum())} otherwise; t equal bit for "
+        f"bit where the ids agree: {np.array_equal(ta[same], tb[same])}")
+    if (~same & ~tie & ~near).any() or near.mean() > NEAR_ORIGIN_SHARE or \
+            not np.array_equal(ta[same], tb[same]):
+        raise AssertionError(f"{label}: the trees' hits differ")
+
+
+def tree_turns(kerns: dict, rays: dict, smi: str, label: str) -> dict:
+    """Kernel ms per launch on two trees, in turns (A, B, B, A), 10
+    launches each; {tree: {ray set: ms}}."""
+    (na, ka), (nb, kb) = kerns.items()
+    out = {na: {}, nb: {}}
+    for what, (o, d) in rays.items():
+        a1 = time_ms(lambda: ka(o, d), 10)
+        b1 = time_ms(lambda: kb(o, d), 10)
+        b2 = time_ms(lambda: kb(o, d), 10)
+        a2 = time_ms(lambda: ka(o, d), 10)
+        out[na][what], out[nb][what] = (a1 + a2) / 2, (b1 + b2) / 2
+        log(f"[times] {label} {what} {o.x.shape[0]} rays on {smi}: {na} "
+            f"{out[na][what]:.3f} ms (runs {a1:.3f}, {a2:.3f}), {nb} "
+            f"{out[nb][what]:.3f} ms (runs {b1:.3f}, {b2:.3f})")
+    return out
+
+
+def frame_turns(scenes: dict, cam, smi: str, label: str) -> None:
+    """The wavefront headline frame (HEADLINE) on two scenes, in turns
+    (A, B, B, A) after a 1-spp warm-up of each; prints each frame's
+    Mrays/s and the two scenes' means."""
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+
+    kw = dict(width=HEADLINE["width"], height=HEADLINE["height"],
+              max_depth=HEADLINE["max_depth"])
+    for s in scenes.values():
+        render_wavefront(s, cam, spp=1, seed=1, **kw)
+    (na, a), (nb, b) = scenes.items()
+    runs = {na: [], nb: []}
+    for name, s in ((na, a), (nb, b), (nb, b), (na, a)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rays = render_wavefront(s, cam, **HEADLINE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs[name].append(int(rays.sum()) / secs / 1e6)
+    mean = {n: sum(r) / len(r) for n, r in runs.items()}
+    log(f"[frames] {label} 1024x1024 spp64 d10 in turns on {smi}: {na} "
+        f"{mean[na]:.4f} Mrays/s (runs {runs[na][0]:.4f}, "
+        f"{runs[na][1]:.4f}), {nb} {mean[nb]:.4f} (runs {runs[nb][0]:.4f}, "
+        f"{runs[nb][1]:.4f}): {nb} / {na} = {mean[nb] / mean[na]:.4f}")
+
+
+def phase_sbvh(smi: str, sponza_glb: bytes, headline: tuple,
+               lbvh_gate: tuple) -> None:
+    """Phase 24: SBVH spatial splits (SRT_SBVH=1, ops/sah.py) through the
+    port's kernels. headline is phase 7's (image, tallies, seconds),
+    lbvh_gate phase 18's LBVH frame."""
+    from types import SimpleNamespace
+
+    from sycl_ray_tracer_torch.models.instanced import (
+        build_instanced_device_scene)
+    from sycl_ray_tracer_torch.models.scene import build_device_scene
+    from sycl_ray_tracer_torch.models.trace import intersect_scene
+    from sycl_ray_tracer_torch.models.wavefront import render_wavefront
+    from sycl_ray_tracer_torch.ops import sah, woop
+    from sycl_ray_tracer_torch.ops.intersect import intersect_brute_np
+    from sycl_ray_tracer_torch.ops.traverse1 import traverse1
+    from sycl_ray_tracer_torch.ops.traverse5 import traverse5
+    from sycl_ray_tracer_torch.ops.traverse8 import traverse8
+    from sycl_ray_tracer_torch.utils.cli import resolve_scene_bytes
+    from sycl_ray_tracer_torch.utils.fixtures import straddler_scene
+    from sycl_ray_tracer_torch.utils.gltf import load_glb
+    from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
+
+    cuda = torch.device("cuda")
+    # ---- the build: object splits and SBVH on sponza_proc scale 2 ----
+    host = load_glb(sponza_glb)
+    builds = {}
+    for name, spatial in (("object", False), ("SBVH", True)):
+        t0 = time.perf_counter()
+        b = sah.build_sah(host.tri_v, 8, spatial=spatial)
+        t1 = time.perf_counter()
+        sah.validate(b, host.tri_v)
+        log(f"[sbvh] sponza_proc scale 2 {name} build: {b.num_refs} "
+            f"references of {host.num_triangles} triangles, {b.num_leaves} "
+            f"leaves, {b.num_internal} inner nodes, depth {b.depth}; built "
+            f"in {t1 - t0:.3f} s, validate passed in "
+            f"{time.perf_counter() - t1:.2f} s")
+        builds[name] = b
+    b = builds["SBVH"]
+    if b.num_refs <= host.num_triangles:
+        raise AssertionError("no spatial split fired on sponza_proc")
+    scenes = {}
+    for name in builds:
+        t0 = time.perf_counter()
+        with sbvh_env(name == "SBVH"):
+            s = scenes[name] = build_device_scene(host, device=cuda)
+        torch.cuda.synchronize()
+        log(f"[sbvh] {name} tables: nodes {table_bytes(s.bvh_nodes)}, child "
+            f"ids {table_bytes(s.bvh_child_ids)}, Woop rows "
+            f"{table_bytes(s.bvh_woop)}, remap {table_bytes(s.bvh_remap)}: "
+            f"{table_bytes(s.bvh_nodes, s.bvh_child_ids, s.bvh_woop, s.bvh_remap)}"
+            f" bytes; stack {7 * s.bvh_depth + 1} entries at depth "
+            f"{s.bvh_depth}; device scene built in "
+            f"{time.perf_counter() - t0:.2f} s")
+    sb = scenes["SBVH"]
+    if not np.array_equal(sb.bvh_child_ids.cpu().numpy(), b.child_ids):
+        raise AssertionError("SRT_SBVH=1 did not build the SBVH tree")
+    # every slot of a duplicated triangle: equal Woop rows, one Morton slot
+    valid = np.nonzero(b.order >= 0)[0]
+    _, first = np.unique(b.order[valid], return_index=True)
+    lead = valid[first[b.order[valid]]]
+    remap, rows = sb.bvh_remap.cpu().numpy(), sb.bvh_woop.cpu().numpy()
+    if not (np.array_equal(remap[valid], remap[lead])
+            and np.array_equal(rows[valid], rows[lead])):
+        raise AssertionError("a duplicated triangle's slots differ")
+    log(f"[sbvh] {int((valid != lead).sum())} duplicate slots: Woop rows "
+        f"equal bit for bit to their triangle's first slot, same Morton "
+        f"slot")
+
+    # ---- traverse8 on the SBVH tables, on the rays of phases 3 and 4 ----
+    ob = scenes["object"]
+    prim, bounce = make_rays(ob, camera(host, 256, 256, cuda), 256, 256,
+                             65536)
+    cam = camera(host, 1024, 1024, cuda)
+    prim1m, bounce1m = make_rays(ob, cam, 1024, 1024, 1 << 20)
+    rays = {"primary": prim, "bounce": bounce}
+    rays1m = {"primary": prim1m, "bounce": bounce1m}
+    kern, plain = kernel_pair("traverse8", sb)
+    for label, (o, d) in (*rays.items(),
+                          *((f"{k} 1M", v) for k, v in rays1m.items())):
+        compare_hits(kern, plain, o, d, f"traverse8 SBVH {label}")
+        same_hits_in_morton(intersect_scene(sb, o, d),
+                            intersect_scene(ob, o, d),
+                            f"traverse8 SBVH vs object tree {label}")
+    phase_times(kern, plain, rays1m, smi, "traverse8 SBVH sponza_proc")
+    kerns = {"object": kernel_pair("traverse8", ob)[0], "SBVH": kern}
+    turns = tree_turns(kerns, rays1m, smi, "traverse8 sponza_proc")
+    for what, (o, d) in rays1m.items():
+        for tree, s in (("object", ob), ("SBVH", sb)):
+            label = f"traverse8 {tree} sponza_proc {what} 1M"
+            ms, by = bound("traverse8", s, kerns[tree], o, d, label)
+            log(f"[bound] {label}: {ms:.4f} ms, bound by {by}: "
+                f"{100 * ms / turns[tree][what]:.1f} % of the kernel's "
+                f"{turns[tree][what]:.3f} ms")
+
+    # ---- traverse5 MT on the SBVH slot rows (as phase 5) ----
+    phase_mt_mode(sb, host, rays, rays1m, smi, spatial=True)
+    del prim, bounce, prim1m, bounce1m, rays, rays1m, kern, plain, kerns
+
+    # ---- the headline frame and the gate frame with SRT_SBVH=1 ----
+    img8, rays8, secs8 = headline
+    launches, hrays, img, secs = phase_headline(
+        render_wavefront, sb, cam, smi, "sponza_proc scale 2 SRT_SBVH=1",
+        traverse8, (traverse5, traverse1))
+    log(f"[sbvh] headline: {int(hrays.sum()) / secs / 1e6:.4f} Mrays/s "
+        f"({secs:.4f} s) against phase 7's {int(rays8.sum()) / secs8 / 1e6:.4f}"
+        f" ({secs8:.4f} s), {launches} traverse8 launches")
+    check_tallies(hrays, rays8, "sponza_proc SBVH vs object headline")
+    check_images(img, img8, "sponza_proc SBVH vs object headline")
+    frame_turns({"object": ob, "SBVH": sb}, cam, smi,
+                "sponza_proc scale 2 wavefront")
+    del scenes, ob, sb
+    torch.cuda.empty_cache()
+    with sbvh_env(True):
+        frame = gate_frame("SBVH", 8, "auto", smi)
+    gate_check("SBVH", frame, lbvh_gate)
+
+    # ---- traverse5 itf on minecraft_proc's BLAS with SRT_SBVH=1 ----
+    ih = load_glb_instanced(resolve_scene_bytes("minecraft_proc"))
+    refs = [sah.build_sah(p.tri_v, 8, spatial=True).num_refs
+            for p in ih.prims]
+    t0 = time.perf_counter()
+    mc = build_instanced_device_scene(ih, device=cuda)
+    with sbvh_env(True):
+        mcs = build_instanced_device_scene(ih, device=cuda)
+    torch.cuda.synchronize()
+    fields = ("bvh_nodes", "bvh_child_ids", "bvh_mt", "inst_leaf_slot",
+              "inst_xf", "bvh_remap", "shade_tbl")
+    equal = all(torch.equal(getattr(mc, f), getattr(mcs, f)) for f in fields)
+    split = [r > p.tri_v.shape[0] for r, p in zip(refs, ih.prims)]
+    log(f"[sbvh] minecraft_proc: num_refs per primitive {refs} of "
+        f"{[p.tri_v.shape[0] for p in ih.prims]} triangles; "
+        f"{'a split fired' if any(split) else 'no split fired'}; SBVH "
+        f"tables {'equal' if equal else 'differ from'} the object-split "
+        f"tables byte for byte; both built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not any(split) and not equal:
+        raise AssertionError("no split fired, yet the tables differ")
+    del mc
+    kern, plain = kernel_pair("traverse5", mcs)
+    _, bounce1m = make_rays(mcs, camera(ih, 1024, 1024, cuda), 1024, 1024,
+                            1 << 20)
+    compare_hits(kern, plain, *bounce1m,
+                 "traverse5 itf SBVH minecraft bounce 1M", world_ties=True)
+    times = phase_times(kern, plain, {"bounce": bounce1m}, smi,
+                        "traverse5 itf SBVH minecraft_proc")
+    ms, by = bound("traverse5", mcs, kern, *bounce1m,
+                   "traverse5 itf SBVH minecraft_proc bounce 1M")
+    log(f"[bound] traverse5 itf SBVH minecraft_proc bounce 1M: {ms:.4f} ms, "
+        f"bound by {by}: {100 * ms / times['bounce'][0]:.1f} %")
+    del mcs, kern, plain, bounce1m, ih
+
+    # ---- the straddler scene, where splits must fire ----
+    tri, o_np, d_np = straddler_scene(rays=16384)
+    b = sah.build_sah(tri, 8, spatial=True)
+    sah.validate(b, tri)
+    if b.num_refs <= tri.shape[0]:
+        raise AssertionError("no spatial split fired on the straddlers")
+    lrows = sah.leaf_rows(tri, b.order, 8)
+    m, tr, _ = woop.woop_from_leaf_rows(lrows, 8)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    st = SimpleNamespace(
+        bvh_nodes=dev(b.children), bvh_child_ids=dev(b.child_ids),
+        bvh_woop=dev(np.concatenate([m.reshape(-1, 9), tr.reshape(-1, 3)],
+                                    1)), sah_ni=b.num_internal)
+    mt = dev(sah.slot_rows(lrows, 8))
+    _, brute, _, _ = zip(*(intersect_brute_np(o_np[i:i + 4096],
+                                              d_np[i:i + 4096], tri)
+                           for i in range(0, o_np.shape[0], 4096)))
+    brute = np.concatenate(brute)
+    o, d = (to_v3(a, cuda) for a in (o_np, d_np))
+    for name, mtab in (("traverse8", None), ("traverse5", mt)):
+        kern, plain = kernel_pair(name, st, mt=mtab)
+        label = f"{name}{' MT' if mtab is not None else ''} straddlers"
+        compare_hits(kern, plain, o, d, label)
+        slot = kern(o, d).tri.cpu().numpy()
+        got = np.where(slot >= 0, b.order[np.maximum(slot, 0)], -1)
+        log(f"[sbvh] {label}: {tri.shape[0]} triangles, {b.num_refs} "
+            f"references, {o_np.shape[0]} rays, {(got >= 0).mean():.4f} hit; "
+            f"ids after the SAH order "
+            f"{'equal' if np.array_equal(got, brute) else 'NOT equal'} to "
+            f"intersect_brute_np's")
+        if not np.array_equal(got, brute):
+            raise AssertionError(f"{label}: ids differ from brute force")
+
+
+def to_v3(a: np.ndarray, device):
+    """[R, 3] numpy -> V3 of [R] tensors on `device`."""
+    from sycl_ray_tracer_torch.ops.vec import V3
+
+    return V3(*(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(device)
+                for i in range(3)))
+
+
 def main() -> int:
     smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1889,8 +2240,11 @@ def main() -> int:
     # ---- the judges: a tree deeper than 64 stack entries, the port's
     # own Sponza-scale gate (SAH against LBVH), the numpy oracle ----
     timed_phase("deep tree", phase_deep_tree, smi)
-    timed_phase("Sponza gate", phase_sponza_gate, smi)
+    lbvh_gate = timed_phase("Sponza gate", phase_sponza_gate, smi)
     timed_phase("oracle gate", phase_oracle_gate, smi)
+    timed_phase("SBVH", phase_sbvh, smi, sponza_glb, (img8, rays8, secs8),
+                lbvh_gate)
+    torch.cuda.empty_cache()
 
     # ---- ingest parity without Pillow and the CLI (20, 22), then the
     # sharded frames on the one card (21) ----

@@ -37,8 +37,8 @@ from sycl_ray_tracer_torch.models.scene import (LEAF_SIZE, DeviceScene,
                                                 check_stack, pack_texels)
 from sycl_ray_tracer_torch.ops import kernels
 from sycl_ray_tracer_torch.ops import sah as _sah
-from sycl_ray_tracer_torch.utils.instanced import (InstancedHostScene,
-                                                   _invert3x3_transpose)
+from sycl_ray_tracer_torch.utils.gltf import _invert3x3_transpose
+from sycl_ray_tracer_torch.utils.instanced import InstancedHostScene
 
 _INF = np.float32(3.0e38)
 

@@ -288,6 +288,23 @@ def instanced_scene_glb(r: int = 1000, seed: int = 5) -> bytes:
     return b.tobytes()
 
 
+def straddler_scene(rays: int = 1000, seed: int = 1234):
+    """Where SBVH spatial splits fire (the construction of
+    tests/test_sah.py:121-131): 1,200 small random triangles and 80
+    large ones that straddle split planes, then `rays` rays with origins
+    in [-8, 8]^3 and directions in [-1, 1]^3, all from `seed`. Returns
+    (tri_v [1280, 3, 3], o [rays, 3], d [rays, 3]), float32."""
+    rs = np.random.RandomState(seed)
+    c = rs.uniform(-5.0, 5.0, (1200, 3)).astype(np.float32)
+    small = c[:, None, :] + rs.uniform(-0.3, 0.3, (1200, 3, 3)).astype(
+        np.float32)
+    big = (rs.uniform(-5, 5, (80, 3, 3)) * 2.0).astype(np.float32)
+    tri = np.concatenate([small, big]).astype(np.float32)
+    o = rs.uniform(-8, 8, (rays, 3)).astype(np.float32)
+    d = rs.uniform(-1, 1, (rays, 3)).astype(np.float32)
+    return tri, o, d
+
+
 def load_pair(glb_bytes, width, height, leaf_size=4, device="cuda",
               intersector="auto"):
     """(DeviceScene, HostScene, Camera) from GLB bytes, at the JAX

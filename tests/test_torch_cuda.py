@@ -449,6 +449,39 @@ def test_deep_tree_kernel_matches_plain(cuda):
     assert not bool(((k.tri != p.tri) & ~tie).any())
 
 
+@pytest.mark.parametrize("name", ["traverse8", "traverse5"])
+def test_sbvh_kernels_match_plain_and_brute(cuda, name):
+    """On the straddler scene's SBVH tree (spatial splits duplicated
+    references), traverse8 and traverse5 in MT mode equal their plain
+    versions outside 1e-6-relative t ties, and their ids after the SAH
+    order equal the brute-force ids exactly."""
+    from sycl_ray_tracer_torch.ops import woop
+    from sycl_ray_tracer_torch.ops.intersect import intersect_brute_np
+
+    tri, o_np, d_np = tfix.straddler_scene(rays=4096)
+    b = tsah.build_sah(tri, 8, spatial=True)
+    assert b.num_refs > tri.shape[0]
+    rows = tsah.leaf_rows(tri, b.order, 8)
+    if name == "traverse8":
+        m, tr, _ = woop.woop_from_leaf_rows(rows, 8)
+        leaves = np.concatenate([m.reshape(-1, 9), tr.reshape(-1, 3)], 1)
+        kern, plain = t8.traverse8, t8.traverse8_plain
+    else:
+        leaves = tsah.slot_rows(rows, 8)
+        kern, plain = t5.traverse5, t5.traverse5_plain
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    v3 = lambda a: V3(*(dev(a[:, i]) for i in range(3)))
+    args = (dev(b.children), dev(b.child_ids), dev(leaves), b.num_internal,
+            v3(o_np), v3(d_np))
+    k, p = kern(*args), plain(*args)
+    assert torch.equal(k.tri >= 0, p.tri >= 0)
+    tie = (k.t - p.t).abs() <= 1e-6 * p.t.abs()
+    assert not bool(((k.tri != p.tri) & ~tie).any())
+    slot = k.tri.cpu().numpy()
+    got = np.where(slot >= 0, b.order[np.maximum(slot, 0)], -1)
+    assert np.array_equal(got, intersect_brute_np(o_np, d_np, tri)[1])
+
+
 def test_resized_textures_without_pil_match_pinned_digests(cuda):
     """On this machine, with every import of PIL refused: the resized
     fixture textures equal the digests pinned against Pillow on the CPU

@@ -263,3 +263,139 @@ def test_global_scale_equals_jax(name):
     baked = ti.bake()
     for f in ("tri_v", "tri_n"):
         assert np.array_equal(getattr(baked, f), getattr(th, f)), f
+
+
+# ---- the Python ingest: load_glb(use_native=False) ----
+
+_PY_SCENES = {
+    "triangle": (tfix.triangle_scene_glb, (1.0, 1.0, 1.0)),
+    "cube": (tfix.cube_scene_glb, (1.0, 1.0, 1.0)),
+    "dielectric": (lambda: tfix.dielectric_scene_glb(subdiv=1),
+                   (1.0, 1.0, 1.0)),
+    "textured": (tfix.textured_scene_glb, (1.0, 1.0, 1.0)),
+    "resized": (tfix.resized_textures_glb, (1.0, 1.0, 1.0)),
+    "instanced": (lambda: tfix.instanced_scene_glb(30), (1.0, 1.0, 1.0)),
+    "sponza1": (lambda: tproc.sponza_like_glb(scale=1), (1.0, 1.0, 1.0)),
+    "cube-scaled": (tfix.cube_scene_glb, (2.0, 0.5, 1.0)),
+}
+
+
+def _equal_hosts(a, b):
+    """Two HostScenes equal bit for bit, dtypes included."""
+    for f in _FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and np.array_equal(x, y), f
+    assert a.camera_focal_length == b.camera_focal_length
+    for f in ("mtype", "albedo", "tex_id", "roughness", "ior", "emissive"):
+        x, y = getattr(a.materials, f), getattr(b.materials, f)
+        assert x.dtype == y.dtype and np.array_equal(x, y), f
+
+
+@pytest.mark.parametrize("name", list(_PY_SCENES))
+def test_python_ingest_equals_jax_python_ingest(name):
+    """The port's Python ingest against the JAX package's on the same
+    GLB bytes, bit for bit (the same numpy code), and against the port's
+    native ingest under tests/test_native.py's tolerances."""
+    make, scale = _PY_SCENES[name]
+    glb = make()
+    py = tgltf.load_glb(glb, scale, use_native=False)
+    _equal_hosts(jgltf.load_glb(glb, scale, use_native=False), py)
+    assert not tgltf.ingest_mismatch(tgltf.load_glb(glb, scale), py)
+
+
+def _malformed(case):
+    """The malformed GLBs of tests/test_native.py:128-205 and :63."""
+    import json
+    import struct
+
+    from tests.test_native import _mk_glb, _tri_gltf
+
+    g, bin_ = _tri_gltf()
+    if case == "overflow-stride":
+        g["bufferViews"][0]["byteStride"] = 1 << 52
+        g["accessors"][0]["count"] = 4097
+    elif case == "huge-count":
+        g["accessors"].append({"componentType": 5125, "count": int(1e15),
+                               "type": "SCALAR"})
+        g["meshes"][0]["primitives"][0]["indices"] = 1
+    elif case == "truncated-number":
+        j = json.dumps(g).encode()
+        cut = j[: j.rindex(b"0") + 1]
+        chunks = struct.pack("<II", len(cut), 0x4E4F534A) + cut
+        chunks += struct.pack("<II", 8, 0x004E4942) + b"12345678"
+        return b"glTF" + struct.pack("<II", 2, 12 + len(chunks)) + chunks
+    elif case == "cyclic":
+        g["nodes"] = [{"children": [1]}, {"children": [0], "mesh": 0}]
+    elif case == "truncated-bin":
+        full = tfix.cube_scene_glb()
+        return full[: len(full) - 256]
+    elif case == "stride-zero":
+        g["bufferViews"][0]["byteStride"] = 0
+    elif case == "sky-len2":
+        g["scenes"][0]["extras"] = {"sky_color": [9.0, 9.0]}
+    elif case == "zero-scale":
+        n = np.array([[0, 0, 1]] * 3, np.float32)
+        bin_ = bin_ + n.tobytes()
+        g["buffers"] = [{"byteLength": len(bin_)}]
+        g["bufferViews"] = [
+            {"buffer": 0, "byteOffset": 0, "byteLength": 36},
+            {"buffer": 0, "byteOffset": 36, "byteLength": 36}]
+        g["accessors"].append({"bufferView": 1, "componentType": 5126,
+                               "count": 3, "type": "VEC3"})
+        g["meshes"][0]["primitives"][0]["attributes"]["NORMAL"] = 1
+        g["nodes"] = [{"mesh": 0, "scale": [1.0, 0.0, 1.0]}]
+    return _mk_glb(g, bin_)
+
+
+_RAISING = ("overflow-stride", "huge-count", "truncated-number", "cyclic",
+            "truncated-bin")
+
+
+@pytest.mark.parametrize("case", _RAISING + ("stride-zero", "sky-len2",
+                                             "zero-scale"))
+def test_python_ingest_malformed_inputs(case):
+    """Through the Python path each malformed file raises what the JAX
+    package's Python path raises (a 4 PB zero-filled index accessor asks
+    numpy for the array, which refuses it: MemoryError), and the native
+    path raises ValueError; where the file is only odd, both Python paths
+    load it bit for bit alike and the native one agrees."""
+    data = _malformed(case)
+    if case in _RAISING:
+        with pytest.raises(Exception) as jerr:
+            jgltf.load_glb(data, use_native=False)
+        with pytest.raises(type(jerr.value)):
+            tgltf.load_glb(data, use_native=False)
+        with pytest.raises(ValueError):
+            tgltf.load_glb(data)
+        return
+    py = tgltf.load_glb(data, use_native=False)
+    _equal_hosts(jgltf.load_glb(data, use_native=False), py)
+    nat = tgltf.load_glb(data)
+    assert not tgltf.ingest_mismatch(nat, py)
+    if case == "stride-zero":
+        assert py.num_triangles == 1
+        assert not np.allclose(py.tri_v[0, 0], py.tri_v[0, 1])
+    elif case == "sky-len2":
+        assert py.sky_color.shape == (3,)
+        assert np.allclose(py.sky_color, (0.5, 0.7, 1.0))
+    else:
+        assert (py.tri_n == 0).all() and (nat.tri_n == py.tri_n).all()
+
+
+def test_load_glb_has_no_fallback(monkeypatch):
+    """The default ingest is native and raises when the native library
+    fails; use_native=False never touches the library."""
+    from sycl_ray_tracer_torch.utils import native_loader
+
+    glb = tfix.cube_scene_glb()
+
+    def broken(*a, **k):
+        raise RuntimeError("building the native library failed")
+
+    monkeypatch.setattr(native_loader, "load_glb_native", broken)
+    monkeypatch.setattr(native_loader, "load_library", broken)
+    with pytest.raises(RuntimeError, match="native library"):
+        tgltf.load_glb(glb)
+    with pytest.raises(RuntimeError, match="native library"):
+        tgltf.load_glb(glb, use_native=True)
+    assert tgltf.load_glb(glb, use_native=False).num_triangles > 0
