@@ -72,7 +72,9 @@ def _wave(scene, cam: Camera, seed: int, sample_offset: int, rays,
                               done=torch.zeros_like(o.x, dtype=torch.bool))
     for i in range(max_depth):
         with _profile.stage(prof, "count"):
-            live = int((~st.done).sum())
+            live = (~st.done).sum()
+            with _profile.sync(prof, "live"):
+                live = int(live)
         if live == 0:
             break
         rays[i] += live

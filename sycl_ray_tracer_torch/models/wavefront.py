@@ -57,13 +57,19 @@ def _coherence_key(scene, o: V3, d: V3) -> torch.Tensor:
     return (oct_ << 29) | (dom << 27) | (m >> 5)
 
 
-def _compact(alive: torch.Tensor, sort_key: torch.Tensor) -> torch.Tensor:
+def _compact(alive: torch.Tensor, sort_key: torch.Tensor,
+             prof=None) -> torch.Tensor:
     """Indices of the alive lanes, ordered by key (stable). Live keys
     are clamped one below the dead sentinel, so a live lane never sorts
-    among the dead."""
+    among the dead. The host reads the live count (the "live" wait of
+    utils/profile.py:sync; prof: the frame's FrameProfile, or None)."""
     key = torch.where(alive, torch.clamp(sort_key, max=_DEAD_KEY - 1),
                       _DEAD_KEY)
-    return torch.argsort(key, stable=True)[:int(alive.sum())]
+    order = torch.argsort(key, stable=True)
+    live = alive.sum()
+    with _profile.sync(prof, "live"):
+        live = int(live)
+    return order[:live]
 
 
 def frame_pixels(width: int, height: int, device):
@@ -137,12 +143,14 @@ def _bounce(scene, q: torch.Tensor, q_id: torch.Tensor, bounce_idx: int,
     with _profile.stage(prof, "accumulate"):
         terminated = miss | ~cont | term_rr
         contrib = where(miss, res_miss, res_absorb)
-        t_idx = terminated.nonzero().squeeze(1)
+        with _profile.sync(prof, "terminated"):
+            t_idx = terminated.nonzero().squeeze(1)
         acc.index_add_(0, pix[t_idx], torch.stack(contrib, dim=1)[t_idx])
 
     with _profile.stage(prof, "compact"):
         new_o = o + d * hit.t
-        perm = _compact(~terminated, _coherence_key(scene, new_o, new_dir))
+        perm = _compact(~terminated, _coherence_key(scene, new_o, new_dir),
+                        prof)
         q2 = torch.stack([*new_o, *new_dir, *new_att, *rad_hit])[:, perm]
         q_id2 = q_id[perm]
     return q2, q_id2

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sycl_ray_tracer_torch.utils import profile as _profile
+
 _MASK = 0xFFFFFFFF
 _MULT = 1664525
 # Multiplier from the PCG family (Melissa O'Neill's PCG, public domain).
@@ -29,9 +31,14 @@ _PCG_MULT = 747796405
 
 
 def _u32(x, device=None) -> torch.Tensor:
-    """Any int tensor or Python int -> int64 tensor of 32-bit words."""
+    """Any int tensor or Python int -> int64 tensor of 32-bit words. A
+    Python int becomes a tensor on `device`: on the card a copy from
+    pageable memory that waits for the stream (the "scalar" wait of
+    utils/profile.py:sync)."""
     if not isinstance(x, torch.Tensor):
-        return torch.tensor(int(x) & _MASK, dtype=torch.int64, device=device)
+        with _profile.sync(_profile.current(), "scalar"):
+            return torch.tensor(int(x) & _MASK, dtype=torch.int64,
+                                device=device)
     return x.to(torch.int64) & _MASK
 
 

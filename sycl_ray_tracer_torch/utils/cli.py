@@ -198,12 +198,14 @@ def traced_frame(run, device, trace_dir: str, rank: int = 0, log=print):
     CUDA activity on the card): writes the Chrome trace to
     <trace_dir>/trace_rank{rank}.json and logs the 8 device activities
     (kernels, copies, sets) with the most device time, the device time
-    of each srt.<stage> range, and the device's busy share over the
-    frame (summed device time over the frame's seconds) beside the
-    card's name and power limit. Returns (run(), seconds, stats) with
-    stats {"trace": path, "device_ms", "busy" (None on the CPU),
+    of each srt.<stage> range, the count of each srt.sync.<wait> range
+    (utils/profile.py:sync), and the device's busy share over the frame
+    (the union of the device activities' intervals, overlap counted
+    once, over the frame's seconds) beside the card's name and power
+    limit. Returns (run(), seconds, stats) with stats {"trace": path,
+    "device_ms" (the union's length), "busy" (None on the CPU),
     "kernels": [(name, ms, count)] by device time, "stages": {range:
-    device ms}}."""
+    device ms}, "syncs": {range: count}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -215,17 +217,27 @@ def traced_frame(run, device, trace_dir: str, rank: int = 0, log=print):
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, f"trace_rank{rank}.json")
     prof.export_chrome_trace(path)
-    kernels, stages = [], {}
+    kernels, stages, syncs = [], {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
+            if e.key.startswith("srt.sync."):
+                syncs[e.key] = e.count
             continue
         ms = e.self_device_time_total / 1e3
-        if getattr(e, "is_user_annotation", False):
-            stages[e.key] = ms
-        else:
+        if not getattr(e, "is_user_annotation", False):
             kernels.append((e.key, ms, e.count))
+        elif not e.key.startswith("srt.sync."):
+            stages[e.key] = ms
     kernels.sort(key=lambda k: -k[1])
-    device_ms = sum(k[1] for k in kernels)
+    spans, end, device_ms = [], None, 0.0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            spans.append((e.start_ns() / 1e6, e.end_ns() / 1e6))
+    for s, e in sorted(spans):  # the union of the intervals
+        if end is None or s > end:
+            device_ms, end = device_ms + e - s, e
+        elif e > end:
+            device_ms, end = device_ms + e - end, e
     busy = device_ms / (secs * 1e3) if device.type == "cuda" else None
     log(f"[trace] {path}: {secs:.6f} s frame on {card_label(device)}")
     for name, ms, count in kernels[:8]:
@@ -233,11 +245,13 @@ def traced_frame(run, device, trace_dir: str, rank: int = 0, log=print):
     if stages:
         log("[trace] device time of the stage ranges: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in sorted(stages.items())))
+    log(f"[trace] {sum(syncs.values())} srt.sync ranges"
+        + "".join(f", {k} {v}" for k, v in sorted(syncs.items())))
     if busy is not None:
         log(f"[trace] device busy {device_ms:.3f} ms of {secs * 1e3:.3f} ms "
             f"= {100 * busy:.2f} %")
     return out, secs, {"trace": path, "device_ms": device_ms, "busy": busy,
-                       "kernels": kernels, "stages": stages}
+                       "kernels": kernels, "stages": stages, "syncs": syncs}
 
 
 def render_frame(rank: int, device, args) -> int:

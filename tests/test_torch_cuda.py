@@ -2,9 +2,10 @@
 plain versions and their host builds (at ray counts around a warp, and
 under masks), the wrappers' input checks, small renders (baked,
 Morton heap through the megakernel, and two-level instanced) on cuda
-against the same renders on the cpu, and the measuring entry points (a
-tiny in-process sweep and a profiler trace). They skip without a CUDA
-device.
+against the same renders on the cpu, the measuring entry points (a
+tiny in-process sweep and a profiler trace), and the host's waits: every
+synchronizing call of a small frame of either engine inside a
+utils/profile.py:sync range. They skip without a CUDA device.
 This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -576,3 +577,92 @@ def test_sweep_and_trace_on_card(cuda, tmp_path, monkeypatch):
     assert sum(k[2] for k in ran) == int((rays > 0).sum())
     assert sum(k[1] for k in ran) > 0 and 0 < st["busy"] <= 1.0
     assert (tmp_path / "trace" / "trace_rank0.json").stat().st_size > 0
+    # a wave's 3 waits, and 6 in each bounce (utils/profile.py:sync)
+    assert sum(st["syncs"].values()) == 3 + 6 * int((rays > 0).sum())
+
+
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D",
+               "cudaMemset")
+
+
+@pytest.mark.parametrize("engine", ["wavefront", "megakernel"])
+def test_every_wait_of_a_frame_is_a_sync_range(cuda, engine, monkeypatch):
+    """One small frame of each engine: every synchronizing CUDA call
+    lies inside a utils/profile.py:sync range. Under
+    torch.cuda.set_sync_debug_mode("warn") each warning comes while a
+    sync range is open, and in the profiler's trace every synchronizing
+    runtime call starts inside a srt.sync.* host range."""
+    import contextlib
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sycl_ray_tracer_torch.utils import profile as sprofile
+
+    render = render_wavefront if engine == "wavefront" else render_megakernel
+    host = load_glb(tproc.sponza_like_glb(scale=1))
+    scene = build_device_scene(host, device=cuda)
+    cam = make_camera(64, 48, host.camera_position, host.camera_direction,
+                      host.camera_focal_length, device=cuda)
+    kw = dict(width=64, height=48, spp=4, max_depth=6, seed=7)
+    ref, ref_rays = render(scene, cam, **kw)  # builds the kernels
+    torch.cuda.synchronize()
+
+    depth, seen = [0], []
+    real = sprofile.sync
+
+    @contextlib.contextmanager
+    def counted(prof, name):
+        with real(prof, name):
+            depth[0] += 1
+            try:
+                yield
+            finally:
+                depth[0] -= 1
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            seen.append((str(message), depth[0]))
+
+    monkeypatch.setattr(sprofile, "sync", counted)
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            img, rays = render(scene, cam, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    outside = [m for m, d in seen if d == 0]
+    print(f"{engine}: {len(seen)} sync warnings, {len(outside)} outside "
+          "a sync range")
+    assert seen and not outside, outside[:3]
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("test.frame"):
+            img2, rays2 = render(scene, cam, **kw)
+    ranges, calls, frame = [], [], None
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            continue
+        span = (e.start_ns(), e.end_ns())
+        if e.name() == "test.frame":
+            frame = span
+        elif e.name().startswith("srt.sync."):
+            ranges.append(span)
+        elif e.name() in _SYNC_CALLS:
+            calls.append(span)
+    calls = [c for c in calls if frame[0] <= c[0] < frame[1]]
+    free = [c for c in calls
+            if not any(s <= c[0] and c[1] <= e for s, e in ranges)]
+    print(f"{engine}: {len(ranges)} srt.sync ranges, {len(calls)} "
+          f"synchronizing runtime calls, {len(free)} outside them")
+    assert calls and not free
+    for a, b in ((ref, img), (ref, img2)):
+        assert float(torch.sqrt(torch.mean(
+            (a.double() - b.double()) ** 2))) < 1e-6
+    assert torch.equal(rays, ref_rays) and torch.equal(rays2, ref_rays)
