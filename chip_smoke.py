@@ -3,6 +3,7 @@ kernel on them against its plain PyTorch version, and report.
 
     python3 chip_smoke.py           # one card: the phases below
     python3 chip_smoke.py --cards   # several cards: --devices across them
+    python3 chip_smoke.py --stages  # one card: phases 1, 2 and 4d alone
 
 Phases (any failure raises and exits non-zero):
 1. device: CUDA is required; prints the card's name and power limit;
@@ -81,6 +82,18 @@ Phases (any failure raises and exits non-zero):
    tallies equal to those of 15; its bound as in 8, from the host walk
    on a sample, every 8th live lane of each launch, whose hits must
    equal the kernel's there, with the counted work scaled by 8;
+4d. (after 4) the bounce stages' kernels (ops/vertex.py, csrc/vertex.cu)
+   on the 1M first-bounce rays of 4 and their hits, attenuation and
+   radiance drawn from a seed: the shade kernel's records, the
+   wavefront's stages by hand (terminated flags, survivors' rays, pixel
+   sums; one ray a pixel) and the megakernel's step by hand (the whole
+   state) against the plain torch stages, bit for bit; then, in turns
+   (eager, kernel, kernel, eager), the time of the shade kernel against
+   the eager shade stage, of the wavefront's scatter kernel against its
+   eager scatter stage, and of the megakernel's shade and scatter
+   kernels against its eager shade, scatter and accumulate stages (the
+   state restored before each launch, outside the timing), each with
+   the bytes its lanes move and their share of 3.35 TB/s;
 4c. (after 4b) the binary-LBVH cross-check intersector (intersector=
    "lbvh", ops/traverse.py, plain torch) against traverse8 on the 1M
    bounce rays of 4, ids in Morton slots on both sides, with the rules
@@ -277,7 +290,9 @@ def phase_device() -> str:
 SM_REGS, SM_SMEM, SM_BLOCKS, SM_WARPS = 65536, 228 * 1024, 32, 64
 # threads per block of each kernel (csrc/*.cu)
 BLOCK_THREADS = {"traverse8_kernel": 128, "traverse5_kernel": 128,
-                 "traverse1_kernel": 128, "compact_lanes_kernel": 256}
+                 "traverse1_kernel": 128, "compact_lanes_kernel": 256,
+                 "shade_kernel": 256, "scatter_queue_kernel": 256,
+                 "scatter_paths_kernel": 256}
 
 
 def resident_warps(threads: int, regs: int, smem: int) -> int:
@@ -959,6 +974,195 @@ def timed_phase(label: str, fn, *args):
     out = fn(*args)
     log(f"[phase] {label}: {time.perf_counter() - t0:.2f} s")
     return out
+
+
+def stage_bytes(hit, miss, textured, paths=None) -> dict:
+    """Bytes each bounce-stage kernel moves on these lanes, each input
+    read once and each output written once (csrc/vertex.cu): shade
+    reads a lane's id, and a hit lane's barycentrics, 64-byte shading
+    row and texel, and writes its 48-byte record; the wavefront's
+    scatter reads the miss flag and d, att, rad (36) of every lane, and
+    a hit lane's record and key inputs (q_id, lane: 16), and writes
+    direction, attenuation, radiance (36), the flag and the contribution
+    (12); the megakernel's reads the done flag, and of a live lane the
+    miss flag, att, rad (24) and, on a hit, the record, d, key (68),
+    then writes either result and done (13) or, scattered, o + d t (t
+    and o read: 16) and o, d, att, rad (48). paths: the megakernel's
+    (done before the step, scattered by it) masks, or None."""
+    n = hit.t.shape[0]
+    hits = int((~miss).sum())
+    out = {"shade": n * hit.tri.element_size() + hits * (8 + 64 + 48)
+           + int(textured.sum()) * 4,
+           "queue": n * (1 + 36 + 36 + 1 + 12) + hits * (48 + 16)}
+    if paths is not None:
+        live, scat = ~paths[0], paths[1]
+        nl, nh, ns = int(live.sum()), int((live & ~miss).sum()), int(
+            scat.sum())
+        out["paths"] = n + nl * 25 + nh * 68 + (nl - ns) * 13 + ns * 64
+    return out
+
+
+def time_turns(eager, kern, label: str, smi: str, n: int, nbytes: int,
+               setup=None) -> tuple:
+    """eager and kern timed in turns (eager, kernel, kernel, eager), in
+    ms a call; setup (if given) runs before each call, outside the
+    timing."""
+    def run(fn, reps):
+        if setup is None:
+            return time_ms(fn, reps)
+        total = 0.0
+        for _ in range(reps):
+            setup()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            total += a.elapsed_time(b)
+        return total / reps
+
+    e1, k1 = run(eager, 3), run(kern, 10)
+    k2, e2 = run(kern, 10), run(eager, 3)
+    k, e = (k1 + k2) / 2, (e1 + e2) / 2
+    share = nbytes / HBM_BYTES_PER_S / (k * 1e-3)
+    log(f"[stages] {label}, {n} lanes on {smi}: kernel {k:.3f} ms (runs "
+        f"{k1:.3f}, {k2:.3f}), eager {e:.3f} ms (runs {e1:.3f}, {e2:.3f}): "
+        f"{e / k:.1f}x; {nbytes / n:.1f} bytes a lane, "
+        f"{100 * share:.1f} % of 3.35 TB/s")
+    return k, e
+
+
+def phase_stages(scene, o, d, smi: str) -> dict:
+    """Phase 4d on the rays (o, d) of n lanes: the shade and scatter
+    kernels against the plain stages (bit for bit), then their times
+    against the eager stages they replace."""
+    from sycl_ray_tracer_torch.models import materials as mats
+    from sycl_ray_tracer_torch.models import trace as tr
+    from sycl_ray_tracer_torch.models import wavefront as wf
+    from sycl_ray_tracer_torch.ops import rng, vertex
+    from sycl_ray_tracer_torch.ops.vec import V3, normalize
+
+    dev = o.x.device
+    n = o.x.shape[0]
+    hit = tr.intersect_scene(scene, o, d)
+    miss = hit.tri < 0
+    gen = torch.Generator().manual_seed(3)
+
+    def draw(lo, hi):
+        return V3(*(torch.empty(n).uniform_(lo, hi, generator=gen).to(dev)
+                    for _ in range(3)))
+
+    att, rad = draw(0.05, 1.0), draw(0.0, 0.3)
+    q = torch.stack([*o, *d, *att, *rad])
+    q_id = torch.arange(n, device=dev)
+    lane = q_id * 3 + 1
+    seed, bounce = (1 << 40) + 7, 0
+
+    def same(a, b, label):
+        bad = ~((a == b) | (a.isnan() & b.isnan()))
+        if bool(bad.any()):
+            cols = bad.reshape(-1, bad.shape[-1]).any(0).nonzero()[:5, 0]
+            raise AssertionError(f"{label}: {int(bad.sum())} values differ "
+                                 f"from plain, at lanes {cols.tolist()}")
+
+    # ---- the kernels against the plain stages ----
+    rec = vertex.shade(scene, hit)
+    normal, uu, vv, mat = tr.shade_lanes(scene, hit)
+    ref = torch.stack([*normal, *mats.albedo_lanes(scene, mat, uu, vv),
+                       *mat.emissive, mat.mtype.float(), mat.rough, mat.ior])
+    same(rec[:, ~miss], ref[:, ~miss], "shade records")
+    textured = ~miss & (mat.tex >= 0)
+    del ref, normal, uu, vv, mat
+    out = []
+    for stages in (wf._stages_plain, wf._stages_by_hand):
+        acc = torch.zeros((n, 3), device=dev)
+        nd, na, rh, term = stages(scene, q, q_id, hit, miss, bounce, acc,
+                                  seed, 0, lane, False, None)
+        out.append((torch.stack([*nd, *na, *rh]), term, acc))
+    (a, ta, acc_a), (b, tb, acc_b) = out
+    same(ta, tb, "wavefront terminated flags")
+    same(a[:, ~ta], b[:, ~ta], "wavefront survivors' rays")
+    same(acc_a, acc_b, "wavefront pixel sums")
+    del out, a, b, acc_a, acc_b
+    key = rng.make_key(rng.make_key(seed, 0), lane)
+    zero = torch.zeros_like(o.x)
+    start = tr.PathState(o=o, d=d, att=att, rad=rad,
+                         result=V3(zero, zero, zero),
+                         done=torch.zeros(n, dtype=torch.bool, device=dev))
+
+    def fresh():
+        return tr.PathState(*(V3(*(c.clone() for c in v))
+                              for v in start[:5]), done=start.done.clone())
+
+    plain = tr.step_plain(scene, start, hit, miss, key, bounce + 2)
+    mine = tr.step_by_hand(scene, fresh(), hit, miss, key, bounce + 2)
+    for name, x, y in zip(plain._fields, plain, mine):
+        same(torch.stack(list(x)) if name != "done" else x,
+             torch.stack(list(y)) if name != "done" else y,
+             f"megakernel state {name}")
+    log(f"[stages] sponza_proc {n} first-bounce lanes ({int(miss.sum())} "
+        f"misses, {int(textured.sum())} textured hits): shade records, "
+        f"the wavefront's stages ({int(ta.sum())} terminated) and the "
+        f"megakernel's step equal the plain stages bit for bit: ok")
+
+    # ---- times ----
+    nbytes = stage_bytes(hit, miss, textured, (start.done, ~plain.done))
+    sky = scene.sky_color
+
+    def shade_eager():
+        res_miss = att * (V3(sky[0], sky[1], sky[2]) + rad)
+        normal, uu, vv, mat = tr.shade_lanes(scene, hit)
+        rad_hit = rad + mat.emissive
+        return res_miss, normal, uu, vv, mat, rad_hit, att * rad_hit
+
+    sh = shade_eager()
+
+    def scatter_eager():
+        _, normal, uu, vv, mat = sh[:5]
+        key = rng.make_key(rng.make_key(seed, 0 + q_id // n), lane[q_id % n])
+        cont, nd, s_att = mats.scatter(scene, mat, normalize(d, eps=1e-20),
+                                       normal, uu, vv, key, bounce + 2)
+        return cont, nd, att * s_att
+
+    times = {"shade": time_turns(
+        shade_eager, lambda: vertex.shade(scene, hit), "shade", smi, n,
+        nbytes["shade"])}
+    times["scatter_queue"] = time_turns(
+        scatter_eager, lambda: vertex.scatter(
+            scene, rec, hit.t, miss, bounce + 2, q=q, q_id=q_id, lane=lane,
+            seed=seed), "wavefront scatter", smi, n, nbytes["queue"])
+    del sh
+    live = fresh()
+
+    def restore():
+        for v, w in zip(live[:5], start[:5]):
+            for c, c0 in zip(v, w):
+                c.copy_(c0)
+        live.done.copy_(start.done)
+
+    times["paths"] = time_turns(
+        lambda: tr.step_plain(scene, start, hit, miss, key, bounce + 2),
+        lambda: tr.step_by_hand(scene, live, hit, miss, key, bounce + 2),
+        "megakernel shade + scatter (eager: shade, scatter, accumulate)",
+        smi, n, nbytes["shade"] + nbytes["paths"], setup=restore)
+    return times
+
+
+def stages_main() -> int:
+    """python3 chip_smoke.py --stages: phases 1, 2 and 4d alone, on the 1M
+    first-bounce rays of sponza_proc scale 2."""
+    from sycl_ray_tracer_torch.utils.cli import resolve_scene_bytes
+
+    smi = phase_device()
+    phase_build()
+    cuda = torch.device("cuda")
+    scene, cam, _ = load(resolve_scene_bytes("sponza_proc"), 1024, 1024,
+                         cuda)
+    _, bounce1m = make_rays(scene, cam, 1024, 1024, 1 << 20)
+    timed_phase("bounce stages", phase_stages, scene, *bounce1m, smi)
+    log("[stages] ok")
+    return 0
 
 
 def phase_lbvh_vs_sah(scene, host, o, d, smi: str) -> None:
@@ -2118,6 +2322,7 @@ def main() -> int:
                compare_hits(kern, plain, *bounce1m, "traverse8 bounce 1M"))
     times = phase_times(kern, plain, {"primary": prim1m, "bounce": bounce1m},
                         smi, "traverse8 sponza_proc")
+    timed_phase("bounce stages", phase_stages, scene, *bounce1m, smi)
     b8 = bound("traverse8", scene, kern, *bounce1m,
                "traverse8 sponza_proc bounce 1M")
     phase_masked(kern, plain, *bounce1m, smi, "traverse8 sponza_proc bounce")
@@ -2328,4 +2533,5 @@ def cards_main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(cards_main() if sys.argv[1:] == ["--cards"] else main())
+    sys.exit(cards_main() if sys.argv[1:] == ["--cards"] else
+             stages_main() if sys.argv[1:] == ["--stages"] else main())

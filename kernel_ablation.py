@@ -310,10 +310,13 @@ def build(variants: dict, trees: dict) -> dict:
         srcs[name] = src
     out = {}
     for name, src in srcs.items():
-        objs = [os.path.join(src, f"{s}.o") for s in kernels.CUDA_SOURCES]
+        # a tree from before a source was added builds without it
+        sources = [s for s in kernels.CUDA_SOURCES
+                   if os.path.exists(os.path.join(src, s))]
+        objs = [os.path.join(src, f"{s}.o") for s in sources]
         cmds += [[nvcc] + kernels.NVCC_FLAGS + ["-c", "-I", src, "-o", obj,
                                                 os.path.join(src, s)]
-                 for s, obj in zip(kernels.CUDA_SOURCES, objs)]
+                 for s, obj in zip(sources, objs)]
         lib = os.path.join(OUT, name, "kernels.so")
         links.append([nvcc] + kernels.ARCH + ["-shared", "-o", lib] + objs)
         out[name] = lib

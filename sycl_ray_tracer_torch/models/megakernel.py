@@ -39,7 +39,7 @@ from sycl_ray_tracer_torch.models import trace as _trace
 from sycl_ray_tracer_torch.models.camera import Camera, generate_rays
 from sycl_ray_tracer_torch.models.wavefront import frame_pixels
 from sycl_ray_tracer_torch.ops import rng as _rng
-from sycl_ray_tracer_torch.ops.vec import V3, linear_to_gamma
+from sycl_ray_tracer_torch.ops.vec import linear_to_gamma
 from sycl_ray_tracer_torch.utils import profile as _profile
 
 # Lanes per wave: whole camera samples of the pixels up to 8M lanes (the
@@ -63,13 +63,7 @@ def _wave(scene, cam: Camera, seed: int, sample_offset: int, rays,
         idx = ids % r
         key = _rng.make_key(_rng.make_key(seed, sample_offset + ids // r),
                             lane[idx])
-        o, d = generate_rays(cam, px[idx], py[idx], key)
-        zero = torch.zeros_like(o.x)
-        one = torch.ones_like(o.x)
-        st = _trace.PathState(o=o, d=d, att=V3(one, one, one),
-                              rad=V3(zero, zero, zero),
-                              result=V3(zero, zero, zero),
-                              done=torch.zeros_like(o.x, dtype=torch.bool))
+        st = _trace.start_state(*generate_rays(cam, px[idx], py[idx], key))
     for i in range(max_depth):
         with _profile.stage(prof, "count"):
             live = (~st.done).sum()

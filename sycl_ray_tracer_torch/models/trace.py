@@ -10,6 +10,10 @@ every lane of a megakernel wave:
 - absorbed   -> contribute attenuation * radiance
 - scattered  -> origin += t * dir (unnormalized dir), dir = scatter dir,
                 attenuation *= scatter attenuation, path continues
+
+On the card the shade and scatter stages are one hand-written kernel
+each (ops/vertex.py, csrc/vertex.cu), which compute these functions per
+lane; on the CPU they are the plain torch code below, their reference.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from sycl_ray_tracer_torch.models import materials as mats
 from sycl_ray_tracer_torch.ops import rng as _rng
+from sycl_ray_tracer_torch.ops import vertex as _vertex
 from sycl_ray_tracer_torch.ops.intersect import Hit
 from sycl_ray_tracer_torch.ops.traverse import traverse
 from sycl_ray_tracer_torch.ops.traverse1 import traverse1
@@ -41,6 +46,18 @@ class PathState(NamedTuple):
     rad: V3              # accumulated radiance
     result: V3           # final color once done
     done: torch.Tensor   # bool
+
+
+def start_state(o: V3, d: V3) -> PathState:
+    """A wave's first state: attenuation 1, radiance and result 0, no
+    lane done. Each column is a tensor of its own, since the card's
+    scatter stage updates the state in place."""
+    ar = torch.zeros((9, o.x.shape[0]), dtype=torch.float32,
+                     device=o.x.device)
+    ar[0:3] = 1.0
+    return PathState(o=o, d=d, att=V3(*ar[0:3]), rad=V3(*ar[3:6]),
+                     result=V3(*ar[6:9]),
+                     done=torch.zeros_like(o.x, dtype=torch.bool))
 
 
 def intersect_scene(scene, o: V3, d: V3,
@@ -143,13 +160,24 @@ def trace_step(scene, state: PathState, key: torch.Tensor,
     package's trace_step (trace.py:466-519), in the same order, and per
     lane those of models/wavefront.py:_bounce, so that both engines
     compute the same paths. The stages run in utils/profile.py:stage
-    (prof: the frame's FrameProfile, or None)."""
+    (prof: the frame's FrameProfile, or None). On the card shade and
+    scatter are one kernel each (step_by_hand), which update the state
+    in place; on the CPU they are plain torch (step_plain)."""
+    with _profile.stage(prof, "intersect"):
+        hit = intersect_scene(scene, state.o, state.d, active=~state.done)
+        miss = hit.tri < 0
+    step = step_by_hand if state.o.x.is_cuda else step_plain
+    return step(scene, state, hit, miss, key, bounce_counter, rr, prof)
+
+
+def step_plain(scene, state: PathState, hit, miss: torch.Tensor,
+               key: torch.Tensor, bounce_counter: int, rr: bool = False,
+               prof=None) -> PathState:
+    """trace_step's shade, scatter and accumulate stages in plain torch,
+    on the hits of the live lanes (done lanes: tri = -1); returns the
+    new state."""
     o, d, att, rad = state.o, state.d, state.att, state.rad
     live = ~state.done
-
-    with _profile.stage(prof, "intersect"):
-        hit = intersect_scene(scene, o, d, active=live)
-        miss = hit.tri < 0
 
     with _profile.stage(prof, "shade"):
         sky = scene.sky_color
@@ -190,3 +218,17 @@ def trace_step(scene, state: PathState, key: torch.Tensor,
         done = state.done | term_miss | term_abs | term_rr
     return PathState(o=new_o, d=new_d, att=new_att, rad=new_rad,
                      result=result, done=done)
+
+
+def step_by_hand(scene, state: PathState, hit, miss: torch.Tensor,
+                 key: torch.Tensor, bounce_counter: int, rr: bool = False,
+                 prof=None) -> PathState:
+    """trace_step's shade and scatter stages as one launch each
+    (ops/vertex.py): the result and done updates are folded into the
+    scatter, which updates `state` in place and returns it."""
+    with _profile.stage(prof, "shade"):
+        rec = _vertex.shade(scene, hit)
+    with _profile.stage(prof, "scatter"):
+        return _vertex.scatter(scene, rec, hit.t, miss, bounce_counter,
+                               rr=rr, rr_start=RR_START, state=state,
+                               key=key)

@@ -36,6 +36,7 @@ from sycl_ray_tracer_torch.models import materials as mats
 from sycl_ray_tracer_torch.models import trace as _trace
 from sycl_ray_tracer_torch.models.camera import Camera, generate_rays
 from sycl_ray_tracer_torch.ops import rng as _rng
+from sycl_ray_tracer_torch.ops import vertex as _vertex
 from sycl_ray_tracer_torch.ops.lbvh import morton30
 from sycl_ray_tracer_torch.ops.vec import V3, linear_to_gamma, normalize, where
 from sycl_ray_tracer_torch.utils import profile as _profile
@@ -109,14 +110,36 @@ def _bounce(scene, q: torch.Tensor, q_id: torch.Tensor, bounce_idx: int,
     intersect, shade, scatter, add the terminated rays into acc [R, 3]
     in place, and return the compacted survivors (q, q_id). Each stage
     runs in utils/profile.py:stage (prof: the frame's FrameProfile, or
-    None)."""
-    n_pix = acc.shape[0]
+    None). On the card shade and scatter are one kernel each
+    (_stages_by_hand); on the CPU they are plain torch (_stages_plain)."""
     o, d = V3(q[0], q[1], q[2]), V3(q[3], q[4], q[5])
-    att, rad = V3(q[6], q[7], q[8]), V3(q[9], q[10], q[11])
 
     with _profile.stage(prof, "intersect"):
         hit = _trace.intersect_scene(scene, o, d)
         miss = hit.tri < 0
+
+    stages = _stages_by_hand if q.is_cuda else _stages_plain
+    new_dir, new_att, rad_hit, terminated = stages(
+        scene, q, q_id, hit, miss, bounce_idx, acc, seed, sample_offset,
+        lane, rr, prof)
+
+    with _profile.stage(prof, "compact"):
+        new_o = o + d * hit.t
+        perm = _compact(~terminated, _coherence_key(scene, new_o, new_dir),
+                        prof)
+        q2 = torch.stack([*new_o, *new_dir, *new_att, *rad_hit])[:, perm]
+        q_id2 = q_id[perm]
+    return q2, q_id2
+
+
+def _stages_plain(scene, q, q_id, hit, miss, bounce_idx, acc, seed,
+                  sample_offset, lane, rr, prof):
+    """The shade, scatter and accumulate stages of _bounce in plain
+    torch: add the terminated rays into acc and return (new_dir,
+    new_att, rad_hit, terminated)."""
+    n_pix = acc.shape[0]
+    d = V3(q[3], q[4], q[5])
+    att, rad = V3(q[6], q[7], q[8]), V3(q[9], q[10], q[11])
 
     with _profile.stage(prof, "shade"):
         sky = scene.sky_color
@@ -146,14 +169,30 @@ def _bounce(scene, q: torch.Tensor, q_id: torch.Tensor, bounce_idx: int,
         with _profile.sync(prof, "terminated"):
             t_idx = terminated.nonzero().squeeze(1)
         acc.index_add_(0, pix[t_idx], torch.stack(contrib, dim=1)[t_idx])
+    return new_dir, new_att, rad_hit, terminated
 
-    with _profile.stage(prof, "compact"):
-        new_o = o + d * hit.t
-        perm = _compact(~terminated, _coherence_key(scene, new_o, new_dir),
-                        prof)
-        q2 = torch.stack([*new_o, *new_dir, *new_att, *rad_hit])[:, perm]
-        q_id2 = q_id[perm]
-    return q2, q_id2
+
+def _stages_by_hand(scene, q, q_id, hit, miss, bounce_idx, acc, seed,
+                    sample_offset, lane, rr, prof):
+    """_stages_plain as one shade and one scatter launch
+    (ops/vertex.py), which key each lane from (seed, sample_offset,
+    q_id, lane) in the kernel; the accumulate stage adds their
+    contributions."""
+    with _profile.stage(prof, "shade"):
+        rec = _vertex.shade(scene, hit)
+
+    with _profile.stage(prof, "scatter"):
+        out, terminated, contrib = _vertex.scatter(
+            scene, rec, hit.t, miss, bounce_idx + 2, rr=rr,
+            rr_start=_trace.RR_START, q=q, q_id=q_id, lane=lane, seed=seed,
+            sample_offset=sample_offset)
+        del rec
+
+    with _profile.stage(prof, "accumulate"):
+        with _profile.sync(prof, "terminated"):
+            t_idx = terminated.nonzero().squeeze(1)
+        acc.index_add_(0, q_id[t_idx] % acc.shape[0], contrib[t_idx])
+    return V3(*out[0:3]), V3(*out[3:6]), V3(*out[6:9]), terminated
 
 
 def _wave_samples(spp: int, n: int) -> int:

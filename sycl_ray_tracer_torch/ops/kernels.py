@@ -4,7 +4,8 @@ Every CUDA source in csrc/ (CUDA_SOURCES) is compiled by nvcc for
 sm_90a, one process per source, all started together, and linked into
 one shared library with a plain C interface in build/kernels/, at the
 first launch; ctypes loads it. The host build of the same per-ray walks
-(csrc/walk_host.cpp, g++) is the CPU tests' view of the kernels' code.
+and per-lane bounce stages (csrc/walk_host.cpp, csrc/vertex_host.cpp,
+g++) is the CPU tests' view of the kernels' code.
 Both libraries are keyed by a hash of every file in csrc/ plus the
 compiler and its flags, so an edit rebuilds them.
 """
@@ -30,12 +31,12 @@ STACK = 128
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-CUDA_SOURCES = ("traverse8.cu", "traverse5.cu", "traverse1.cu")
+CUDA_SOURCES = ("traverse8.cu", "traverse5.cu", "traverse1.cu", "vertex.cu")
 # kernels whose C entry takes scheduling scratch after n_rays: the list
 # of live lanes (int32 [R], with an active mask) and two zeroed 64-bit
 # counters (csrc/schedule.cuh)
 SCHEDULED = ("traverse8", "traverse5", "traverse1")
-HOST_SOURCE = "walk_host.cpp"
+HOST_SOURCES = ("walk_host.cpp", "vertex_host.cpp")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math (dead slots need IEEE inf/NaN). FMA contraction is
 # off so that the kernels round exactly as their plain torch versions
@@ -53,6 +54,11 @@ _I64 = ctypes.c_int64
 _TABLES = {"traverse8": [_P, _P, _P, _I32],
            "traverse5": [_P, _P, _P, _P, _P, _I32],
            "traverse1": [_P, _P, _I32, _I32, _I32]}
+# argument types of the bounce stages' C entry points (csrc/vertex.cu),
+# ahead of the stream (card); their structs are built by ops/vertex.py
+_STAGES = {"shade": [_P, _P, _I32, _P, _P, _P, _I64],
+           "scatter_queue": [_P, _P],
+           "scatter_paths": [_P, _P]}
 
 _lib = None
 _host_lib = None
@@ -128,18 +134,23 @@ def build_library() -> str:
 
 
 def build_host_library() -> str:
-    """Build the host (g++) library of the same per-ray walks."""
+    """Build the host (g++) library of the same per-ray walks and
+    bounce stages."""
     def make(tmp):
         return _run_all([["g++"] + GXX_FLAGS + [
-            "-I", CSRC, "-o", tmp, os.path.join(CSRC, HOST_SOURCE)]])
+            "-I", CSRC, "-o", tmp] + [os.path.join(CSRC, src)
+                                      for src in HOST_SOURCES]])
 
     return _build("walk_host", ["g++"] + GXX_FLAGS, make)
 
 
-def _bind(lib: ctypes.CDLL, suffix: str, tail: list) -> ctypes.CDLL:
+def _bind(lib: ctypes.CDLL, suffix: str, tail: list,
+          stage_tail: list) -> ctypes.CDLL:
     for name, tables in _TABLES.items():
         fn = getattr(lib, f"srt_{name}{suffix}")
         fn.argtypes = tables + [_P] * 12 + tail
+    for name, args in _STAGES.items():
+        getattr(lib, f"srt_{name}{suffix}").argtypes = args + stage_tail
     lib.srt_stack.restype = ctypes.c_int
     if lib.srt_stack() != STACK:
         raise RuntimeError("csrc/bvh8_walk.cuh SRT_STACK differs from "
@@ -151,8 +162,8 @@ def load_library() -> ctypes.CDLL:
     """The CUDA kernel library, built at first use."""
     global _lib
     if _lib is None:
-        lib = _bind(ctypes.CDLL(build_library()), "", [_I64, _P])
-        for name in _TABLES:
+        lib = _bind(ctypes.CDLL(build_library()), "", [_I64, _P], [_P])
+        for name in (*_TABLES, *_STAGES):
             fn = getattr(lib, f"srt_{name}")
             fn.restype = ctypes.c_int
             if name in SCHEDULED:
@@ -165,8 +176,9 @@ def load_host_library() -> ctypes.CDLL:
     """The g++ build of the kernels' per-ray walks, for the CPU tests."""
     global _host_lib
     if _host_lib is None:
-        lib = _bind(ctypes.CDLL(build_host_library()), "_host", [_I64, _P])
-        for name in _TABLES:
+        lib = _bind(ctypes.CDLL(build_host_library()), "_host", [_I64, _P],
+                    [])
+        for name in (*_TABLES, *_STAGES):
             getattr(lib, f"srt_{name}_host").restype = None
         _host_lib = lib
     return _host_lib

@@ -25,9 +25,10 @@ the blocking call alone while a profiler runs, and with a FrameProfile
 a count of the wait in the current row. The waits:
 
 - scalar: a Python int copied to the device (ops/rng.py:_u32: the
-  camera's seed and jitter counters, the wavefront's per-bounce key
-  seed, the scatter's three draw counters), a blocking upload from
-  pageable memory;
+  camera's seed and jitter counters; on the CPU also the wavefront's
+  per-bounce key seed and the scatter's three draw counters, which the
+  card's scatter kernel takes as launch arguments), a blocking upload
+  from pageable memory;
 - live: the live-count read, the megakernel's in its "count" stage and
   the wavefront's in "compact";
 - terminated: the wavefront's index list of the terminated rays

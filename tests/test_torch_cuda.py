@@ -1,6 +1,9 @@
 """Tests of the port that need the card: the CUDA kernels against their
 plain versions and their host builds (at ray counts around a warp, and
-under masks), the wrappers' input checks, small renders (baked,
+under masks), the bounce stages' shade and scatter kernels against the
+plain torch stages (at lane counts around a warp, under done masks, with
+russian roulette off and on) and their launches per bounce, the
+wrappers' input checks, small renders (baked,
 Morton heap through the megakernel, and two-level instanced) on cuda
 against the same renders on the cpu, the measuring entry points (a
 tiny in-process sweep and a profiler trace), and the host's waits: every
@@ -15,6 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from sycl_ray_tracer_torch.models import materials as tmats
+from sycl_ray_tracer_torch.models import trace as ttrace
+from sycl_ray_tracer_torch.models import wavefront as twf
 from sycl_ray_tracer_torch.models.instanced import (
     build_instanced_device_scene)
 from sycl_ray_tracer_torch.models.megakernel import render_megakernel
@@ -31,6 +39,7 @@ from sycl_ray_tracer_torch.utils.gltf import load_glb
 from sycl_ray_tracer_torch.models.scene import build_device_scene
 from sycl_ray_tracer_torch.models.camera import make_camera
 from sycl_ray_tracer_torch.ops import kernels
+from sycl_ray_tracer_torch.ops import vertex
 
 pytestmark = pytest.mark.cuda
 
@@ -407,6 +416,185 @@ def test_wrapper_refuses_misaligned_tables(cuda, name):
                  leaf_xf=misaligned(kw["leaf_xf"]))
 
 
+_STAGE_SCENE = {}
+
+
+def _stage_lanes(dev, r, done=None, seed=21):
+    """r lanes of a megakernel state on sponza scale 1 (textured diffuse,
+    metal, glass and emissive materials; SAH tree, int64 ids): rays half
+    from the camera and half from points in the scene, their hits through
+    intersect_scene with the done lanes inactive, and attenuation,
+    radiance, result and RNG keys drawn at random."""
+    if not _STAGE_SCENE:
+        host = load_glb(tproc.sponza_like_glb(scale=1))
+        _STAGE_SCENE.update(scene=build_device_scene(host, device=dev),
+                            cam=host.camera_position,
+                            pts=host.tri_v.reshape(-1, 3))
+    scene = _STAGE_SCENE["scene"]
+    o, d = _case_rays(_STAGE_SCENE["cam"], _STAGE_SCENE["pts"], r, seed, dev)
+    if done is None:
+        done = torch.zeros(r, dtype=torch.bool, device=dev)
+    hit = ttrace.intersect_scene(scene, o, d, active=~done)
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(lo, hi):
+        return V3(*(torch.empty(r).uniform_(lo, hi, generator=gen).to(dev)
+                    for _ in range(3)))
+
+    st = ttrace.PathState(o=o, d=d, att=draw(0.05, 1.0), rad=draw(0.0, 0.3),
+                          result=draw(0.0, 0.5), done=done)
+    key = torch.randint(0, 2**32, (r,), generator=gen,
+                        dtype=torch.int64).to(dev)
+    return scene, st, hit, key
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit as values (NaN equal to NaN)."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (a.isnan() & b.isnan())).all())
+
+
+_LANES = [0, 1, 31, 33, 1 << 20]
+
+
+@pytest.mark.parametrize("r", _LANES)
+def test_shade_kernel_matches_plain(cuda, r):
+    """The shading records of the hit lanes equal shade_lanes' normal,
+    texture-applied albedo, emission, type, roughness and IOR bit for
+    bit (both call rsqrtf)."""
+    scene, _, hit, _ = _stage_lanes(cuda, r)
+    before = vertex.shade.launches
+    rec = vertex.shade(scene, hit)
+    assert vertex.shade.launches == before + 1
+    normal, uu, vv, mat = ttrace.shade_lanes(scene, hit)
+    ref = torch.stack([*normal, *tmats.albedo_lanes(scene, mat, uu, vv),
+                       *mat.emissive, mat.mtype.float(), mat.rough, mat.ior])
+    ok = hit.tri >= 0
+    assert _same(rec[:, ok], ref[:, ok])
+    if r == 1 << 20:
+        assert set(rec[9, ok].unique().tolist()) == {0.0, 1.0, 2.0}
+
+
+def _hold_paths(dev, r, done=None, rr=False):
+    """step_by_hand (shade and scatter kernels, state in place) against
+    step_plain on the same hits: every column and the done flags equal
+    bit for bit."""
+    scene, st, hit, key = _stage_lanes(dev, r, done)
+    miss = hit.tri < 0
+    plain = ttrace.step_plain(scene, st, hit, miss, key, 6, rr)
+    mine = ttrace.PathState(*(V3(*(c.clone() for c in v)) for v in st[:5]),
+                            done=st.done.clone())
+    before = (vertex.shade.launches, vertex.scatter.launches)
+    assert ttrace.step_by_hand(scene, mine, hit, miss, key, 6, rr) is mine
+    assert (vertex.shade.launches, vertex.scatter.launches) == (
+        before[0] + 1, before[1] + 1)
+    for name, a, b in zip(plain._fields, plain[:5], mine[:5]):
+        for ca, cb in zip(a, b):
+            assert _same(ca, cb), name
+    assert torch.equal(plain.done, mine.done)
+    return st, mine
+
+
+@pytest.mark.parametrize("rr", [False, True])
+@pytest.mark.parametrize("r", _LANES)
+def test_scatter_paths_matches_plain_at_lane_counts(cuda, r, rr):
+    st, mine = _hold_paths(cuda, r, rr=rr)
+    if r == 1 << 20:
+        assert 0 < int(mine.done.sum()) < r
+
+
+@pytest.mark.parametrize("mask", ["sparse", "last_of_warp"])
+def test_scatter_paths_matches_plain_under_done_masks(cuda, mask):
+    """5 % of the lanes live at random, and only the last lane of each
+    warp live: the done lanes keep their state."""
+    r = 65536
+    lane = torch.arange(r, device=cuda)
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    live = {"sparse": (torch.rand(r, generator=gen) < 0.05).to(cuda),
+            "last_of_warp": lane % 32 == 31}[mask]
+    st, mine = _hold_paths(cuda, r, done=~live, rr=True)
+    for a, b in zip(st[:5], mine[:5]):
+        for ca, cb in zip(a, b):
+            assert torch.equal(ca[~live], cb[~live])
+
+
+@pytest.mark.parametrize("rr", [False, True])
+@pytest.mark.parametrize("r", _LANES)
+def test_scatter_queue_matches_plain(cuda, r, rr):
+    """The wavefront's stages by hand against plain on one queue of r
+    rays, one ray a pixel (so the pixel sums take no order): terminated
+    flags, the survivors' direction, attenuation and radiance, and the
+    pixel sums equal bit for bit; the key of each ray is drawn in the
+    kernel from a seed above 32 bits."""
+    scene, st, hit, _ = _stage_lanes(cuda, r)
+    q = torch.stack([*st.o, *st.d, *st.att, *st.rad])
+    q_id = torch.arange(r, device=cuda)
+    lane = q_id * 3 + 1
+    miss = hit.tri < 0
+    out = []
+    for stages in (twf._stages_plain, twf._stages_by_hand):
+        acc = torch.zeros((r, 3), device=cuda)
+        nd, na, rh, term = stages(scene, q, q_id, hit, miss, 4, acc,
+                                  (1 << 40) + 7, 5, lane, rr, None)
+        out.append((torch.stack([*nd, *na, *rh]), term, acc))
+    (a, ta, acc_a), (b, tb, acc_b) = out
+    assert torch.equal(ta, tb)
+    assert _same(a[:, ~ta], b[:, ~ta])
+    assert _same(acc_a, acc_b)
+    if r == 1 << 20:
+        assert 0 < int(ta.sum()) < r
+
+
+@pytest.mark.parametrize("engine", ["wavefront", "megakernel"])
+def test_stage_launches_equal_bounces(cuda, engine):
+    """A frame launches the shade and the scatter kernel once per bounce
+    of each wave (here one wave)."""
+    host = load_glb(tfix.cube_scene_glb())
+    scene = build_device_scene(host, device=cuda)
+    cam = make_camera(48, 48, host.camera_position, host.camera_direction,
+                      host.camera_focal_length, device=cuda)
+    render = render_wavefront if engine == "wavefront" else render_megakernel
+    before = (vertex.shade.launches, vertex.scatter.launches)
+    _, rays = render(scene, cam, width=48, height=48, spp=2, max_depth=6,
+                     seed=4)
+    bounces = int((rays > 0).sum())
+    assert bounces >= 3
+    assert (vertex.shade.launches - before[0],
+            vertex.scatter.launches - before[1]) == (bounces, bounces)
+
+
+def test_stage_wrappers_refuse_bad_inputs(cuda):
+    scene, st, hit, key = _stage_lanes(cuda, 64)
+    miss = hit.tri < 0
+    for bad in (hit._replace(u=hit.u.double()),
+                hit._replace(tri=hit.tri.float()),
+                hit._replace(v=hit.v[:-1]),
+                hit._replace(t=hit.t.cpu())):
+        with pytest.raises(ValueError):
+            vertex.shade(scene, bad)
+    tbl = scene.shade_tbl
+    buf = torch.empty(tbl.numel() + 1, dtype=tbl.dtype, device=cuda)
+    view = buf[1:].view(tbl.shape)
+    view.copy_(tbl)
+    with pytest.raises(ValueError, match="16-byte"):
+        vertex.shade(dataclasses.replace(scene, shade_tbl=view), hit)
+    rec = vertex.shade(scene, hit)
+    path = dict(state=st, key=key)
+    for args, kw in (((rec[:, :-1], hit.t, miss), path),
+                     ((rec, hit.t, miss.to(torch.uint8)), path),
+                     ((rec, hit.t.double(), miss), path),
+                     ((rec, hit.t, miss), dict(state=st, key=key.int())),
+                     ((rec, hit.t, miss), {}),
+                     ((rec, hit.t, miss), dict(q=torch.zeros(
+                         (12, 64), device=cuda), q_id=key, lane=key[:0])),
+                     ((rec.cpu(), hit.t, miss), path)):
+        with pytest.raises(ValueError):
+            vertex.scatter(scene, *args, 2, **kw)
+    with pytest.raises(ValueError, match="overlap"):
+        vertex.scatter(scene, rec, hit.t, miss, 2,
+                       state=st._replace(rad=st.att), key=key)
+
+
 def test_lbvh_walk_cuda_matches_cpu(cuda):
     """The binary-LBVH walk (plain torch) gives the same hits bit for bit
     on the card as on the cpu, and an LBVH render launches no kernel."""
@@ -577,8 +765,10 @@ def test_sweep_and_trace_on_card(cuda, tmp_path, monkeypatch):
     assert sum(k[2] for k in ran) == int((rays > 0).sum())
     assert sum(k[1] for k in ran) > 0 and 0 < st["busy"] <= 1.0
     assert (tmp_path / "trace" / "trace_rank0.json").stat().st_size > 0
-    # a wave's 3 waits, and 6 in each bounce (utils/profile.py:sync)
-    assert sum(st["syncs"].values()) == 3 + 6 * int((rays > 0).sum())
+    # a wave's 3 waits, and 2 in each bounce (utils/profile.py:sync): the
+    # terminated rays' index list and the live count; the scatter kernel
+    # takes its RNG counters as arguments
+    assert sum(st["syncs"].values()) == 3 + 2 * int((rays > 0).sum())
 
 
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",

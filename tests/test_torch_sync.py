@@ -10,7 +10,9 @@ counters, ops/rng.py:_u32), then each bounce 4 in the megakernel (its
 live count and the scatter's three draw counters) and 6 in the
 wavefront (its key seed and the scatter's three counters, the
 terminated rays' index list, the live count); a sharded frame adds 2
-(the tallies to the device and back)."""
+(the tallies to the device and back). These are the CPU's counts: on the
+card the scatter kernel takes its counters as arguments, which leaves 1
+and 2 a bounce (tests/test_torch_cuda.py)."""
 
 import collections
 import json
