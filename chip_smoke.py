@@ -70,10 +70,9 @@ Phases (any failure raises and exits non-zero):
    with per-bounce tallies within max(16, 0.5 %);
 14. minecraft_proc two-level (171,997 instances): set-up times, counts
    and table bytes; traverse5 (itf mode) against plain on 65,536 and
-   1M primary and 1M first-bounce rays with the rules of 3 (ties in
-   world units, see compare_hits), the times of kernel and plain at 1M
-   rays, the bound as in 4, and the masked launch of 4b on the 1M
-   bounce rays (with the same world-unit ties);
+   1M primary and 1M first-bounce rays with the rules of 3, the times
+   of kernel and plain at 1M rays, the bound as in 4, and the masked
+   launch of 4b on the 1M bounce rays;
 15. the instanced headline render: minecraft_proc --shared-instances,
    as 7; checks that every bounce launched traverse5 once and traverse8
    and traverse1 never;
@@ -405,29 +404,19 @@ def kernel_pair(name: str, scene, mt=None):
             (lambda o, d, **kw: plain(*tabs, o, d, **extra, **kw)))
 
 
-def compare_hits(kern, plain, o, d, label: str,
-                 world_ties: bool = False, chains: bool = True,
+def compare_hits(kern, plain, o, d, label: str, chains: bool = True,
                  active=None) -> float:
     """Kernel against plain on the same rays; returns max |t| error on
     the lanes whose ids agree.
 
-    Ids must agree outside ties, where the order of the walk
-    (depth-first in the kernel, level by level in plain) may pick
-    either hit. Two hits tie when their t agree within 1e-6 relative.
-    With world_ties (traverse5 itf only) they also tie when their
-    points on the ray lie within 1e-6 of the coordinates' scale
-    (|o| + t |d|): an instance's node box, rounded to nearest f32, can
-    prune the closer of two such hits once the kernel has found the
-    other. On minecraft_proc's coplanar voxel faces, 62 of 1M
-    first-bounce rays tie only so; one of them leaves its surface at t
-    about 1.4e-4, just past TNEAR, and its two hits differ by 9.5e-8 in
-    t, 6.8e-4 relative. Those world ties are held to the world-unit
-    window, counted, and their largest relative gap printed; every
-    other hit must agree in t to rtol 1e-4, and lanes whose ids agree
-    in u, v to atol 1e-4. chains=False skips the t_init check (traverse1
-    has no t_init). With `active`, both run under that mask (inactive
-    lanes must agree as misses with t = 0) and the t_init and mask
-    checks are skipped."""
+    Ids must agree outside ties. Both walks keep the least (t, id) hit
+    (csrc/bvh8_walk.cuh), so they agree at ties too, but for the rare
+    ray whose tied hit lies in a box that its slab entry rounds above;
+    two hits tie when their t agree within 1e-6 relative. Every hit must
+    agree in t to rtol 1e-4, and lanes whose ids agree in u, v to atol
+    1e-4. chains=False skips the t_init check (traverse1 has no t_init).
+    With `active`, both run under that mask (inactive lanes must agree
+    as misses with t = 0) and the t_init and mask checks are skipped."""
     mask = {} if active is None else dict(active=active)
     k = kern(o, d, **mask)
     p = plain(o, d, **mask)
@@ -438,19 +427,12 @@ def compare_hits(kern, plain, o, d, label: str,
         raise AssertionError(f"{label}: hit/miss differ on "
                              f"{int(((ki >= 0) != (pi >= 0)).sum())} rays")
     hit = pi >= 0
-    dlen = torch.stack(list(d), 1).norm(dim=1).cpu().numpy()
-    scale = (torch.stack(list(o), 1).abs().amax(1).cpu().numpy()
-             + np.where(hit, pt, 0.0) * dlen)
-    world = hit & (ki != pi) & (np.abs(kt - pt) > 1e-6 * np.abs(pt))
-    bad = world
-    if world_ties:
-        bad = world & (np.abs(kt - pt) * dlen > 1e-6 * scale)
+    bad = hit & (ki != pi) & (np.abs(kt - pt) > 1e-6 * np.abs(pt))
     if bad.any():
         raise AssertionError(f"{label}: tri ids differ outside ties on "
                              f"{int(bad.sum())} rays")
     same = hit & (ki == pi)
-    np.testing.assert_allclose(kt[hit & ~world], pt[hit & ~world],
-                               rtol=1e-4)
+    np.testing.assert_allclose(kt[hit], pt[hit], rtol=1e-4)
     for a, b in ((k.u, p.u), (k.v, p.v)):
         np.testing.assert_allclose(a.cpu().numpy()[same],
                                    b.cpu().numpy()[same], atol=1e-4)
@@ -480,13 +462,9 @@ def compare_hits(kern, plain, o, d, label: str,
                                  "mask")
     err = float(np.abs(kt[same] - pt[same]).max()) if same.any() else 0.0
     broken = hit & (ki != pi)
-    rel = np.abs(kt - pt)[world] / pt[world]
     log(f"[kernel] {label}: {o.x.shape[0]} rays, {hit.mean():.4f} hit, "
         f"{int(broken.sum())} tie-broken ids (kernel farther on "
-        f"{int((kt[broken] > pt[broken]).sum())}), of which "
-        f"{int(world.sum())} world ties beyond 1e-6 of t (up to "
-        f"{rel.max() if rel.size else 0.0:.3g} relative, "
-        f"{int((rel > 1e-4).sum())} beyond 1e-4); max |dt| where ids "
+        f"{int((kt[broken] > pt[broken]).sum())}); max |dt| where ids "
         f"agree {err:.3g}: ok")
     return err
 
@@ -572,12 +550,11 @@ def bound(name: str, scene, kern, o, d, label: str, mt=None):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_masked(kern, plain, o, d, smi: str, label: str,
-                 world_ties: bool = False) -> None:
+def phase_masked(kern, plain, o, d, smi: str, label: str) -> None:
     """The masked launch: the rays (1M) tiled to a megakernel wave of
     WAVE_LANES lanes, the kernel timed under seeded random masks with
     each share of LIVE_SHARES live, and held against plain on the first
-    1M lanes under the same mask (world_ties as in compare_hits)."""
+    1M lanes under the same mask."""
     from sycl_ray_tracer_torch.ops.vec import V3
 
     n = o.x.shape[0]
@@ -591,7 +568,7 @@ def phase_masked(kern, plain, o, d, smi: str, label: str,
         live = int(active.sum())
         compare_hits(kern, plain, *(V3(*(c[:n] for c in v)) for v in (ot, dt)),
                      f"{label} {share:.0%} live, first {n} lanes",
-                     world_ties=world_ties, active=active[:n])
+                     active=active[:n])
         ms = time_ms(lambda: kern(ot, dt, active=active), 10)
         log(f"[masked] {label} {WAVE_LANES} lanes, {live} live on {smi}: "
             f"{ms:.3f} ms per launch, {ms / (live / 1e6):.4f} ms per million "
@@ -2236,7 +2213,7 @@ def phase_sbvh(smi: str, sponza_glb: bytes, headline: tuple,
     _, bounce1m = make_rays(mcs, camera(ih, 1024, 1024, cuda), 1024, 1024,
                             1 << 20)
     compare_hits(kern, plain, *bounce1m,
-                 "traverse5 itf SBVH minecraft bounce 1M", world_ties=True)
+                 "traverse5 itf SBVH minecraft bounce 1M")
     times = phase_times(kern, plain, {"bounce": bounce1m}, smi,
                         "traverse5 itf SBVH minecraft_proc")
     ms, by = bound("traverse5", mcs, kern, *bounce1m,
@@ -2400,23 +2377,20 @@ def main() -> int:
     prim, bounce = make_rays(scene, camera(ih, 256, 256, cuda), 256, 256,
                              65536)
     err5 = max(err5, compare_hits(kern, plain, *prim,
-                                  "traverse5 itf minecraft primary",
-                                  world_ties=True))
+                                  "traverse5 itf minecraft primary"))
     del prim, bounce
     prim1m, bounce1m = make_rays(scene, cam, 1024, 1024, 1 << 20)
     err5 = max(err5,
                compare_hits(kern, plain, *prim1m,
-                            "traverse5 itf minecraft primary 1M",
-                            world_ties=True),
+                            "traverse5 itf minecraft primary 1M"),
                compare_hits(kern, plain, *bounce1m,
-                            "traverse5 itf minecraft bounce 1M",
-                            world_ties=True))
+                            "traverse5 itf minecraft bounce 1M"))
     times = phase_times(kern, plain, {"primary": prim1m, "bounce": bounce1m},
                         smi, "traverse5 itf minecraft_proc")
     b5 = bound("traverse5", scene, kern, *bounce1m,
                "traverse5 itf minecraft_proc bounce 1M")
     phase_masked(kern, plain, *bounce1m, smi,
-                 "traverse5 itf minecraft_proc bounce", world_ties=True)
+                 "traverse5 itf minecraft_proc bounce")
     del prim1m, bounce1m
     launches5, rays5, img5, secs5 = phase_headline(
         render_wavefront, scene, cam, smi, "minecraft_proc --shared-instances",

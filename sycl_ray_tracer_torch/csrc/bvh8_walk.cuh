@@ -22,17 +22,30 @@
 //     tri = -1, t = t_init and u = v = 0;
 //   - inactive rays report t = 0, tri = -1, u = v = 0;
 //   - a child box is entered when tmax >= max(tmin, TNEAR) and
-//     tmin < t_best, with inverse direction 1/d where |d| > 1e-20 and
+//     tmin <= t_best, with inverse direction 1/d where |d| > 1e-20 and
 //     1e20 otherwise;
-//   - leaves are tested as soon as their box is entered; the leaf test
-//     lowers t_best only on a strictly closer hit, so within a leaf the
-//     lowest slot wins an exact t tie.
+//   - the closest hit is the least (t, id) pair: of two hits at a
+//     bit-equal t the lower id (leaf_row*K + j) wins, whatever order
+//     the walk meets them in. So a child box is entered, and a popped
+//     node walked, while its entry distance is at most t_best (not only
+//     below it), and a leaf's hit replaces the incumbent when it is
+//     closer, or as close with a lower id (tie_bound() below). The tie
+//     rule makes every walk of one tree, the kernels' depth-first walk
+//     and the plain level-by-level one (ops/walk.py), pick the same
+//     triangle where faces coincide, as the coplanar faces of voxels
+//     and of coincident blocks do. One case is left to the order:
+//     where a box's slab entry rounds above a hit inside it, a walk
+//     that already holds an equal-t hit skips the box (on minecraft_proc
+//     1 of 1M primary and 4 of 1M first-bounce rays, each at a
+//     bit-equal t);
+//   - leaves are tested as soon as their box is entered.
 //
 // No fast math: dead slots rely on IEEE inf/NaN.
 
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 #ifdef __CUDACC__
 #define SRT_HD __host__ __device__ __forceinline__
@@ -66,6 +79,32 @@ struct HitOut {
   float u;
   float v;
 };
+
+// The next float above x, for x positive and finite.
+SRT_HD float next_up(float x) {
+#ifdef __CUDA_ARCH__
+  return __int_as_float(__float_as_int(x) + 1);
+#else
+  int32_t i;
+  memcpy(&i, &x, sizeof i);
+  i += 1;
+  memcpy(&x, &i, sizeof x);
+  return x;
+#endif
+}
+
+// The tie rule in a leaf's slot tests: a slot hit replaces the
+// incumbent (tb, h.tri) when its t is below the leaf's bound, which is
+// tb, or the next float above it where the leaf's ids lie below
+// h.tri, so that a hit as close as the incumbent wins there too. A leaf
+// is tested once a ray, so its ids lie all below or all above h.tri;
+// a slot that wins lowers the bound to its t, as the later slots of the
+// leaf have higher ids. With no incumbent (h.tri = -1, tb = t_init) the
+// bound is t_init. One compare a leaf, where an id compare a slot cost
+// traverse8 5 % of its time.
+SRT_HD float tie_bound(float tb, int64_t first_id, const HitOut& h) {
+  return first_id < h.tri ? next_up(tb) : tb;
+}
 
 // Work of one walk: child boxes slab-tested and leaves tested. Only the
 // host build counts (chip_smoke.py's bound); the kernels pass null, and

@@ -32,6 +32,7 @@ struct HeapLeaf {
   SRT_HD void operator()(int64_t leaf, const Ray& r, float& tb,
                          HitOut& h) const {
     const float* row = leaves + leaf * 9 * k;
+    float bound = tie_bound(tb, leaf * k, h);
     if ((k & 3) == 0) {
       for (int g = 0; g < k; g += 4) {
         F4 c[9];
@@ -42,7 +43,7 @@ struct HeapLeaf {
           mt_slot(part(c[0], j), part(c[1], j), part(c[2], j),
                   part(c[3], j), part(c[4], j), part(c[5], j),
                   part(c[6], j), part(c[7], j), part(c[8], j), r,
-                  (int32_t)(leaf * k + g + j), tb, h);
+                  (int32_t)(leaf * k + g + j), tb, bound, h);
         }
       }
       return;
@@ -51,7 +52,7 @@ struct HeapLeaf {
       const float* c = row + j;
       mt_slot(c[0], c[k], c[2 * k], c[3 * k], c[4 * k], c[5 * k],
               c[6 * k], c[7 * k], c[8 * k], r, (int32_t)(leaf * k + j),
-              tb, h);
+              tb, bound, h);
     }
   }
 };

@@ -38,8 +38,9 @@
 //
 // Built with nvcc -O3 for sm_90a, without --use_fast_math and with
 // -fmad=false, so that each operation rounds as in the plain torch
-// version (ops/traverse5.py) and the two agree bit for bit outside
-// equal-t ties. Bound to Python through ctypes (ops/traverse5.py).
+// version (ops/traverse5.py) and the two agree bit for bit, at
+// equal-t ties too but for the rare case that bvh8_walk.cuh names.
+// Bound to Python through ctypes (ops/traverse5.py).
 
 #include <cuda_runtime.h>
 

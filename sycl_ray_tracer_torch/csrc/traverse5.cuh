@@ -34,11 +34,13 @@ namespace srt {
 
 constexpr float kDetEps = 1e-12f;
 
-// One triangle (v0, e1, e2) against the ray: on a hit strictly closer
-// than tb, lowers tb and records (tb, id, u, v).
+// One triangle (v0, e1, e2) against the ray: on a hit with t below
+// `bound` (the walk's tie rule, tie_bound() in bvh8_walk.cuh), sets tb
+// and bound to t and records (t, id, u, v).
 SRT_HD void mt_slot(float v0x, float v0y, float v0z, float e1x, float e1y,
                     float e1z, float e2x, float e2y, float e2z,
-                    const Ray& r, int32_t id, float& tb, HitOut& h) {
+                    const Ray& r, int32_t id, float& tb, float& bound,
+                    HitOut& h) {
   const float px = r.dy * e2z - r.dz * e2y;
   const float py = r.dz * e2x - r.dx * e2z;
   const float pz = r.dx * e2y - r.dy * e2x;
@@ -55,8 +57,9 @@ SRT_HD void mt_slot(float v0x, float v0y, float v0z, float e1x, float e1y,
   const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
   const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   if (ok_det && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-      tt > kTnear && tt < tb) {
+      tt > kTnear && tt < bound) {
     tb = tt;
+    bound = tt;
     h.tri = id;
     h.u = uu;
     h.v = vv;
@@ -68,6 +71,7 @@ SRT_HD void mt_slot(float v0x, float v0y, float v0z, float e1x, float e1y,
 SRT_HD void mt_leaf(const float* __restrict__ mt, int64_t row, int64_t leaf,
                     const Ray& r, float& tb, HitOut& h) {
   const float* m = mt + row * 72;
+  float bound = tie_bound(tb, leaf * 8, h);
   SRT_UNROLL
   for (int g = 0; g < 8; g += 4, m += 36) {
     float c[36];
@@ -83,7 +87,7 @@ SRT_HD void mt_leaf(const float* __restrict__ mt, int64_t row, int64_t leaf,
     for (int s = 0; s < 4; s++) {
       const float* e = c + 9 * s;
       mt_slot(e[0], e[1], e[2], e[3], e[4], e[5], e[6], e[7], e[8], r,
-              (int32_t)(leaf * 8 + g + s), tb, h);
+              (int32_t)(leaf * 8 + g + s), tb, bound, h);
     }
   }
 }

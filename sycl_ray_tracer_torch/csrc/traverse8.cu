@@ -27,7 +27,8 @@
 // Built with nvcc -O3 for sm_90a, without --use_fast_math (dead
 // triangle slots rely on IEEE inf/NaN) and with -fmad=false, so each
 // operation rounds as in the plain torch version and the two agree bit
-// for bit outside equal-t ties. Bound to Python through ctypes
+// for bit, at equal-t ties too but for the rare case that
+// bvh8_walk.cuh names. Bound to Python through ctypes
 // (ops/traverse8.py).
 
 #include <cuda_runtime.h>

@@ -28,6 +28,7 @@ SRT_HD float neg_rcp(float x) {
 SRT_HD void woop_leaf(const float* __restrict__ woop, int64_t leaf,
                       const Ray& r, float& tb, HitOut& h) {
   const float* w = woop + leaf * 8 * 12;
+  float bound = tie_bound(tb, leaf * 8, h);
   SRT_UNROLL
   for (int s = 0; s < 8; s++, w += 12) {
     // M = (a.x a.y a.z / a.w b.x b.y / b.z b.w c.x), tr = (c.y c.z c.w)
@@ -44,8 +45,9 @@ SRT_HD void woop_leaf(const float* __restrict__ woop, int64_t leaf,
     const float uu = opx + tt * dpx;
     const float vv = opy + tt * dpy;
     if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > kTnear &&
-        tt < tb) {
+        tt < bound) {
       tb = tt;
+      bound = tt;
       h.tri = (int32_t)(leaf * 8 + s);
       h.u = uu;
       h.v = vv;

@@ -3,9 +3,10 @@
 // (and of their host builds in walk_host.cpp), generic over where the
 // child ids come from (bvh8_walk.cuh) and over the leaf test. For each
 // ray it
-//   - pops a node and skips it unless its entry distance is below
+//   - pops a node and skips it unless its entry distance is at most
 //     t_best (the test made when it was pushed, against the t_best of
-//     now);
+//     now: a node at t_best may still hold a hit at t_best with a lower
+//     id, bvh8_walk.cuh);
 //   - slab-tests the node's non-empty child slots j = 0..7 in slot
 //     order, each against the t_best of that moment;
 //   - tests a leaf as soon as its box is entered;
@@ -108,7 +109,7 @@ SRT_HD void child_row(const HeapChildren& kids, int32_t nd, int32_t id[8]) {
 // Slab test of the 8 child boxes of one node row (bvh8_walk.cuh
 // layout), with the expressions of ops/walk.py: tmin[j] is child j's
 // entry distance, and bit j of the result says tmax >= max(tmin,
-// TNEAR). A child is entered when its bit is set and tmin[j] < t_best.
+// TNEAR). A child is entered when its bit is set and tmin[j] <= t_best.
 SRT_HD uint32_t slab8(const float* __restrict__ row, const Ray& r,
                       float ix, float iy, float iz, float tmin[8]) {
   float b[48];
@@ -138,11 +139,12 @@ SRT_HD uint32_t slab8(const float* __restrict__ row, const Ray& r,
   return ok;
 }
 
-// Bit j set where tmin[j] < tb.
+// Bit j set where tmin[j] <= tb: a child at exactly tb may still hold a
+// hit at tb with a lower id (the tie rule, bvh8_walk.cuh).
 SRT_HD uint32_t below(const float tmin[8], float tb) {
   uint32_t m = 0;
   SRT_UNROLL
-  for (int j = 0; j < 8; j++) m |= (uint32_t)(tmin[j] < tb) << j;
+  for (int j = 0; j < 8; j++) m |= (uint32_t)(tmin[j] <= tb) << j;
   return m;
 }
 
@@ -206,8 +208,8 @@ struct ArrayStack {
 
 // `kids` gives the child ids (TableChildren or HeapChildren); `leaf`
 // (leaf_row, ray, t_best, hit) tests the slots of one leaf and, on a
-// strictly closer hit, lowers t_best and records the hit; `st` is the
-// stack (put/get of entry k).
+// closer hit by the tie rule (tie_bound()), sets t_best and records the
+// hit; `st` is the stack (put/get of entry k).
 template <class Children, class Leaf, class Stack>
 SRT_HD HitOut walk_regs(const float* __restrict__ nodes,
                         const Children& kids, int32_t ni, const Ray& r,
@@ -233,7 +235,7 @@ SRT_HD HitOut walk_regs(const float* __restrict__ nodes,
     int32_t nd;
     float t_entry;
     st.get(sp, nd, t_entry);
-    if (!(t_entry < tb)) continue;
+    if (!(t_entry <= tb)) continue;
 
     float tmin[8];
     const uint32_t geo = slab8(nodes + (int64_t)nd * 48, r, ix, iy, iz,

@@ -150,9 +150,13 @@ def build_instanced_device_scene(ih: InstancedHostScene, device="cuda",
     ni_prim = np.array([b.num_internal for b in built], np.int64)
     sbase = np.concatenate([[0], np.cumsum(nl_prim)[:-1]])
     s8 = int(nl_prim.sum()) * k
-    if r * s8 >= (1 << 31):
+    # composed hit ids (inst * S8 + shared row) are int64 from bvh_remap
+    # on, so a large unique primitive (a world's water mesh) instanced
+    # among many small ones fits; the walk's own ids, the global slots,
+    # are int32 and checked below
+    if r * s8 >= (1 << 63):
         raise ValueError(
-            f"instances({r}) x shared rows({s8}) overflow int32 "
+            f"instances({r}) x shared rows({s8}) overflow int64 "
             "composed hit ids")
     mt = _sah.slot_rows(np.concatenate(rows), k)
 

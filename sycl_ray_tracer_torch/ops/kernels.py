@@ -40,7 +40,8 @@ HOST_SOURCES = ("walk_host.cpp", "vertex_host.cpp")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math (dead slots need IEEE inf/NaN). FMA contraction is
 # off so that the kernels round exactly as their plain torch versions
-# do and agree bit for bit outside equal-t ties.
+# do and agree bit for bit, equal-t ties included but for the rare case
+# that csrc/bvh8_walk.cuh names.
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                      "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]

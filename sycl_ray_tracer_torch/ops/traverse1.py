@@ -13,7 +13,8 @@ TNEAR < t as Hit(t, tri = l*K + j, u, v), where tri is already a
 canonical Morton slot; active rays without a hit get tri = -1 and
 t = BIG, inactive rays t = 0 and tri = -1; u = v = 0 whenever tri = -1.
 The visit order is nearest child first (the JAX kernel pushes in the
-packet's dominant-octant order): only equal-t ties can differ.
+packet's dominant-octant order); the hits do not depend on it, ties
+included, but for the rare case that csrc/bvh8_walk.cuh names.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (csrc/traverse1.cu: persistent warps over the rays, or over the live

@@ -117,7 +117,8 @@ def mt_slots(ro, rd, comps, tbq):
     of csrc/traverse5.cuh:mt_slot: ray origins and directions ro, rd
     (3 tensors [Q] each), the 9 components v0.xyz, e1.xyz, e2.xyz of
     each slot ([Q, S] each), t_best [Q, 1]. Returns (t, u, v, hit), each
-    [Q, S]."""
+    [Q, S]; hit holds TNEAR < t <= t_best (ops/walk.py applies the tie
+    rule)."""
     ox, oy, oz = (c[:, None] for c in ro)
     dx, dy, dz = (c[:, None] for c in rd)
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = comps
@@ -137,7 +138,7 @@ def mt_slots(ro, rd, comps, tbq):
     vv = (dx * qx + dy * qy + dz * qz) * inv_det
     tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     hit = (ok_det & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-           & (tt > TNEAR) & (tt < tbq))
+           & (tt > TNEAR) & (tt <= tbq))
     return tt, uu, vv, hit
 
 

@@ -3,7 +3,8 @@
 `traverse8` is the port of the JAX package's Pallas kernel
 traverse_packets8 (sycl_ray_tracer_tpu/ops/traverse_pallas8.py:371).
 For each active ray (origin o, unnormalized direction d, incumbent
-t_init) it returns the closest triangle hit with TNEAR < t < t_init as
+t_init) it returns the closest triangle hit with TNEAR < t < t_init (of
+two at a bit-equal t, the lower id: csrc/bvh8_walk.cuh) as
 Hit(t f32, tri i32 leaf-slot id leaf_row*8 + j, u f32, v f32); the
 caller maps slot ids to the canonical Morton order. Active rays without
 such a hit get tri = -1 and t = t_init; inactive rays get t = 0 and
@@ -76,7 +77,7 @@ def traverse8_plain(nodes: torch.Tensor, child_ids: torch.Tensor,
         uu = op[0] + tt * dp[0]
         vv = op[1] + tt * dp[1]
         hit = ((uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-               & (tt > TNEAR) & (tt < tbq))
+               & (tt > TNEAR) & (tt <= tbq))
         return tt, uu, vv, hit
 
     return walk_plain(nodes, child_ids, ni, o, d, active, t_init,

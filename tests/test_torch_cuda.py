@@ -4,8 +4,10 @@ under masks), the bounce stages' shade and scatter kernels against the
 plain torch stages (at lane counts around a warp, under done masks, with
 russian roulette off and on) and their launches per bounce, the
 wrappers' input checks, small renders (baked,
-Morton heap through the megakernel, and two-level instanced) on cuda
-against the same renders on the cpu, the measuring entry points (a
+Morton heap through the megakernel, and two-level instanced, the voxel
+scene's included) on cuda against the same renders on the cpu, traverse5
+itf against its plain walk on that scene's bounce rays, the measuring
+entry points (a
 tiny in-process sweep and a profiler trace), and the host's waits: every
 synchronizing call of a small frame of either engine inside a
 utils/profile.py:sync range. They skip without a CUDA device.
@@ -213,6 +215,77 @@ def test_instanced_render_cuda_matches_cpu(cuda):
     d = np.abs(a - b).max(axis=-1)
     assert (d > 0.05).mean() < 5e-3
     assert float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2))) < 4e-3
+
+
+_VOXEL_FRAME = dict(spp=8, max_depth=10, seed=123456789)
+
+
+def _voxel_pair(dev):
+    """(scene, camera maker) of minecraft_like_glb(n=72) on `dev`: water
+    and stone blocks coincide where its terrain lies at height 1, so
+    many rays meet two faces at a bit-equal t."""
+    ih = load_glb_instanced(tproc.minecraft_like_glb(n=72))
+    scene = build_instanced_device_scene(ih, device=dev)
+    return scene, lambda w, h: make_camera(
+        w, h, ih.camera_position, ih.camera_direction,
+        ih.camera_focal_length, device=dev)
+
+
+@pytest.mark.parametrize("engine", ["wavefront", "megakernel"])
+def test_voxel_render_cuda_matches_cpu(cuda, engine):
+    """The two-level frames of minecraft_like_glb(n=72) at 96x54, 8 spp,
+    depth 10 on the card against the same frames on the CPU, within the
+    flip tail of test_instanced_render_cuda_matches_cpu. Without the
+    walks' tie rule (csrc/bvh8_walk.cuh) the kernel's depth-first walk
+    took the stone block where the plain walk took the water, and the
+    tallies parted by up to 3 % of the paths."""
+    render = render_wavefront if engine == "wavefront" else \
+        render_megakernel
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, cam = _voxel_pair(dev)
+        img, rays = render(scene, cam(96, 54), width=96, height=54,
+                           **_VOXEL_FRAME)
+        out.append((img.cpu().numpy(), rays.numpy()))
+    (a, ra), (b, rb) = out
+    assert (np.abs(ra - rb) <= np.maximum(16, 0.005 * rb)).all(), (ra, rb)
+    d = np.abs(a - b).max(axis=-1)
+    assert (d > 0.05).mean() < 5e-3
+    assert float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2))) < 4e-3
+
+
+def test_traverse5_itf_matches_plain_on_voxel_bounces(cuda, monkeypatch):
+    """traverse5 in itf mode on the card against traverse5_plain on the
+    CPU, on the rays of every bounce of a card frame of
+    minecraft_like_glb(n=72): t equal on every ray, and ids, u and v
+    equal at ties too, since both walks keep the least (t, id) hit; the
+    one case the rule leaves to the walk's order (csrc/bvh8_walk.cuh,
+    5 in 2M minecraft_proc rays) may flip at most 1 in 10,000 hits of
+    the frame."""
+    scene, cam = _voxel_pair(cuda)
+    real = ttrace.traverse5
+    calls = []
+
+    def both(*args, **kw):
+        hit = real(*args, **kw)
+        cpu = [V3(*(c.cpu() for c in a)) if isinstance(a, V3) else
+               a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        plain = t5.traverse5_plain(*cpu, **{
+            k: None if v is None else v.cpu() for k, v in kw.items()})
+        calls.append((type(hit)(*(c.cpu() for c in hit)), plain))
+        return hit
+
+    monkeypatch.setattr(ttrace, "traverse5", both)
+    render_wavefront(scene, cam(48, 27), width=48, height=27,
+                     **_VOXEL_FRAME)
+    assert len(calls) == _VOXEL_FRAME["max_depth"]
+    hits = flips = 0
+    for hit, plain in calls:
+        assert torch.equal(hit.t, plain.t)
+        hits += int((plain.tri >= 0).sum())
+        flips += int(((hit.tri != plain.tri) | (hit.u != plain.u)
+                      | (hit.v != plain.v)).sum())
+    assert hits > 0 and flips <= hits // 10000, (hits, flips)
 
 
 @pytest.mark.parametrize("k", [1, 4])

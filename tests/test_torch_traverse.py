@@ -192,8 +192,10 @@ def test_kernel_walk_host_build_matches_plain(name, r):
 # (tests/torch_common.py:pinned_rays): [child boxes slab-tested, leaves
 # tested], counted by the host build of the walk as it stood before
 # the kernel's redesign. The redesign keeps the order of the walk, so it
-# visits the same nodes and tests the same leaves.
-_PINNED8 = {"primary": [69021, 2739], "bounce": [61389, 2231]}
+# visits the same nodes and tests the same leaves. The tie rule
+# (csrc/bvh8_walk.cuh) also enters the boxes whose entry distance equals
+# t_best: [69021, 2739] and [61389, 2231] before it.
+_PINNED8 = {"primary": [69089, 2750], "bounce": [61389, 2233]}
 _FRAME = {}
 
 
@@ -341,10 +343,12 @@ def _mt_tables(name):
 # the baked SAH tree of sponza_proc scale 1 (the rays of _PINNED8) and in
 # itf mode on the instanced fixture (r = 30), counted by the host build
 # of the walk as it stood before the kernel's redesign, which keeps the
-# order of the walk.
-_PINNED5 = {("mt", "primary"): [69021, 2741],
-            ("mt", "bounce"): [61365, 2221],
-            ("itf", "primary"): [40295, 2505],
+# order of the walk, and since the tie rule, which also enters the boxes
+# at t_best (before it: [69021, 2741], [61365, 2221], [40295, 2505] and
+# the same itf bounce count).
+_PINNED5 = {("mt", "primary"): [69089, 2752],
+            ("mt", "bounce"): [61381, 2231],
+            ("itf", "primary"): [40295, 2513],
             ("itf", "bounce"): [46064, 3374]}
 
 
@@ -453,3 +457,46 @@ def test_alignment_check():
         with pytest.raises(ValueError, match="16-byte"):
             kernels.check_aligned("nodes", base[off:off + 8 * 48].view(8, 48))
     kernels.check_aligned("nodes", base[4:4 + 8 * 48].view(8, 48))
+
+
+@pytest.mark.parametrize("engine", ["wavefront", "megakernel"])
+def test_walks_agree_on_voxel_bounces(monkeypatch, engine):
+    """The kernels' walk (its g++ build) against traverse5_plain on the
+    rays of every bounce of a frame of minecraft_like_glb(n=72), whose
+    coincident water and stone blocks put two faces at a bit-equal t on
+    many rays: t equal on every ray, and ids, u and v at ties too, since
+    both keep the least (t, id) hit (csrc/bvh8_walk.cuh; the one case
+    the rule leaves to the order may flip at most 1 in 10,000 hits of
+    the frame).
+    Without that rule the depth-first walk kept the stone where the
+    plain walk kept the water, on 1,214 of 41,472 primary rays at 96x54
+    and 8 spp."""
+    from sycl_ray_tracer_torch.models.renderer import get_renderer
+
+    _host_lib()
+    ih = load_glb_instanced(tproc.minecraft_like_glb(n=72))
+    scene = build_instanced_device_scene(ih, device="cpu")
+    cam = make_camera(32, 18, ih.camera_position, ih.camera_direction,
+                      ih.camera_focal_length, device="cpu")
+    calls = []
+
+    def both(nodes, child_ids, mt, ni, o, d, active=None, t_init=None,
+             leaf_slot=None, leaf_xf=None):
+        plain = t5.traverse5_plain(nodes, child_ids, mt, ni, o, d, active,
+                                   t_init, leaf_slot, leaf_xf)
+        calls.append((kernels.run_host(
+            "traverse5", [nodes, child_ids, mt, leaf_slot, leaf_xf, ni], o,
+            d, active, t_init), plain))
+        return plain
+
+    monkeypatch.setattr(ttrace, "traverse5", both)
+    get_renderer(engine)(scene, cam, width=32, height=18, spp=8,
+                         max_depth=10, seed=123456789)
+    assert len(calls) == 10
+    hits = flips = 0
+    for host, plain in calls:
+        assert torch.equal(host.t, plain.t)
+        hits += int((plain.tri >= 0).sum())
+        flips += int(((host.tri != plain.tri) | (host.u != plain.u)
+                      | (host.v != plain.v)).sum())
+    assert hits > 0 and flips <= hits // 10000, (hits, flips)
