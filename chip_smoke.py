@@ -4,6 +4,7 @@ kernel on them against its plain PyTorch version, and report.
     python3 chip_smoke.py           # one card: the phases below
     python3 chip_smoke.py --cards   # several cards: --devices across them
     python3 chip_smoke.py --stages  # one card: phases 1, 2 and 4d alone
+    python3 chip_smoke.py --compact # one card: phases 1, 2 and 4e alone
 
 Phases (any failure raises and exits non-zero):
 1. device: CUDA is required; prints the card's name and power limit;
@@ -93,6 +94,14 @@ Phases (any failure raises and exits non-zero):
    kernels against its eager shade, scatter and accumulate stages (the
    state restored before each launch, outside the timing), each with
    the bytes its lanes move and their share of 3.35 TB/s;
+4e. (after 4d) the wavefront's compaction by hand (ops/compact.py,
+   csrc/compact.cu) on real bounces of the benchmark's scenes at
+   1920x1080: sponza_proc's first bounce in 32- and 8-spp waves (66.4M
+   and 16.6M lanes) and minecraft_vox's first and fifth bounces of a
+   32-spp wave; the next queue against the eager compaction bit for
+   bit, the key pass, sort and gather timed alone, and the whole
+   compaction against the eager one in turns, with its bytes and their
+   share of 3.35 TB/s;
 4c. (after 4b) the binary-LBVH cross-check intersector (intersector=
    "lbvh", ops/traverse.py, plain torch) against traverse8 on the 1M
    bounce rays of 4, ids in Morton slots on both sides, with the rules
@@ -291,7 +300,8 @@ SM_REGS, SM_SMEM, SM_BLOCKS, SM_WARPS = 65536, 228 * 1024, 32, 64
 BLOCK_THREADS = {"traverse8_kernel": 128, "traverse5_kernel": 128,
                  "traverse1_kernel": 128, "compact_lanes_kernel": 256,
                  "shade_kernel": 256, "scatter_queue_kernel": 256,
-                 "scatter_paths_kernel": 256}
+                 "scatter_paths_kernel": 256, "compact_keys_kernel": 256,
+                 "radix_pass_kernel": 256, "compact_gather_kernel": 256}
 
 
 def resident_warps(threads: int, regs: int, smem: int) -> int:
@@ -1124,6 +1134,136 @@ def phase_stages(scene, o, d, smi: str) -> dict:
         "megakernel shade + scatter (eager: shade, scatter, accumulate)",
         smi, n, nbytes["shade"] + nbytes["paths"], setup=restore)
     return times
+
+
+def compact_bytes(n: int, live: int) -> dict:
+    """Bytes that the compaction of n lanes with `live` survivors moves.
+    "bound": what the function needs, each input read once and each
+    output written once: every lane's flag, and of a live lane its
+    origin, direction, t, new direction, attenuation, radiance and queue
+    id (72) in and the next queue's 12 rows and id (56) out. "design":
+    what csrc/compact.cu moves: the key pass reads the flag and 72 B of
+    a live lane and writes a 4-byte key a lane and a 64-byte record a
+    live lane; the sort's 4 passes read the key (then key and index) and
+    write key and index (the last the index alone), 56 B a lane; the
+    gather reads the 4-byte index and the record's 64-byte block and
+    writes 56 B a live lane."""
+    return {"bound": n + live * (72 + 56),
+            "design": n * (1 + 4 + 56) + live * (72 + 64 + 4 + 64 + 56)}
+
+
+def compaction_lanes(scene, cam, width: int, height: int, waves: int,
+                     bounce: int, seed: int):
+    """The lanes of bounce `bounce` of a wave of `waves` samples a pixel
+    at width x height, as _bounce hands them to the compaction: (q, q_id,
+    [hit t, new direction, attenuation, radiance, terminated]), the
+    bounces before it run by the engine."""
+    from sycl_ray_tracer_torch.models import trace as tr
+    from sycl_ray_tracer_torch.models import wavefront as wf
+    from sycl_ray_tracer_torch.ops.vec import V3
+
+    pixels = wf.frame_pixels(width, height, cam.center.device)
+    lane = pixels[2]
+    acc = torch.zeros((lane.shape[0], 3), device=lane.device)
+    q, q_id = wf._gen_queue(cam, seed, 0, pixels=pixels, waves=waves)
+    for b in range(bounce):
+        q, q_id = wf._bounce(scene, q, q_id, b, acc, seed, 0, lane)
+    hit = tr.intersect_scene(scene, V3(q[0], q[1], q[2]),
+                             V3(q[3], q[4], q[5]))
+    nd, na, rh, term = wf._stages_by_hand(scene, q, q_id, hit, hit.tri < 0,
+                                          bounce, acc, seed, 0, lane, False,
+                                          None)
+    return q, q_id, [hit.t, nd, na, rh, term]
+
+
+def phase_compaction(smi: str) -> dict:
+    """Phase 4e: the compaction by hand (ops/compact.py, csrc/compact.cu)
+    against the eager one on real bounces of the benchmark's scenes at
+    1920x1080 (srt_bench/configs): sponza_proc's first bounce in a
+    32-spp wave (66.4M lanes, a frame's wave) and in an 8-spp wave (16.6M
+    lanes), and minecraft_vox's first and fifth bounces of a 32-spp wave
+    (its queues shrink). On each: the next queue equal bit for bit;
+    then the key pass, the sort (beside torch.sort of the same keys,
+    the library's stable sort) and the gather timed alone, and the
+    whole compaction by hand against the eager one in turns (eager,
+    kernel, kernel, eager), each with the live-count wait, beside the
+    bytes that compact_bytes counts and their share of 3.35 TB/s."""
+    from srt_bench import cells
+    from sycl_ray_tracer_torch.models import wavefront as wf
+    from sycl_ray_tracer_torch.ops import compact
+
+    cuda = torch.device("cuda")
+    seed = (1 << 40) + 2147483011
+    out = {}
+    for cell, cases in (("sponza_proc.wavefront", ((32, 0), (8, 0))),
+                        ("minecraft_vox.wavefront", ((32, 0), (32, 4)))):
+        config = cells.load(cell).config
+        scene, cam, _ = load(cells.scene_bytes(config), 1920, 1080, cuda,
+                             config["form"] == "two_level")
+        for waves, bounce in cases:
+            q, q_id, lanes = compaction_lanes(scene, cam, 1920, 1080, waves,
+                                              bounce, seed)
+            n = q.shape[1]
+            label = (f"{config['name']} {waves}-spp wave, bounce {bounce}, "
+                     f"{n} lanes")
+            plain = wf._compact_plain(scene, q, q_id, lanes, None)
+            mine = wf._compact_by_hand(scene, q, q_id, list(lanes), None)
+            live = plain[1].numel()
+            if not (torch.equal(mine[0].view(torch.int32),
+                                plain[0].view(torch.int32))
+                    and torch.equal(mine[1], plain[1])):
+                raise AssertionError(f"{label}: the compaction by hand "
+                                     f"differs from the eager one")
+            del plain, mine
+            key, rec, stats = compact.keys(scene, q, q_id, *lanes)
+            scratch = key.clone()
+
+            def sort():  # on a fresh copy: the passes reuse key's buffer
+                scratch.copy_(key)
+                return compact.sort(scratch, stats)
+
+            perm = sort()[:live]
+            steps = {"keys": time_ms(lambda: compact.keys(
+                         scene, q, q_id, *lanes), 10),
+                     "sort": time_ms(sort, 10) - time_ms(
+                         lambda: scratch.copy_(key), 10),
+                     "torch.sort": time_ms(
+                         lambda: torch.sort(key, stable=True), 10),
+                     "gather": time_ms(lambda: compact.gather(rec, perm),
+                                       10)}
+            del key, rec, stats, scratch, perm
+            nbytes = compact_bytes(n, live)
+            own = steps["keys"] + steps["sort"] + steps["gather"]
+            share = nbytes["design"] / HBM_BYTES_PER_S / (own * 1e-3)
+            log(f"[compact] {label}, {live} live, equal to the eager "
+                f"compaction bit for bit; key pass {steps['keys']:.3f} ms, "
+                f"sort {steps['sort']:.3f} ms (torch.sort of the same "
+                f"keys, int32, stable: {steps['torch.sort']:.3f} ms), "
+                f"gather {steps['gather']:.3f} ms; "
+                f"{nbytes['design'] / n:.1f} bytes a lane moved, "
+                f"{100 * share:.1f} % of 3.35 TB/s over the three")
+            k, e = time_turns(
+                lambda: wf._compact_plain(scene, q, q_id, lanes, None),
+                lambda: wf._compact_by_hand(scene, q, q_id, list(lanes),
+                                            None),
+                f"compaction, {label} ({live} live; bound: bytes the next "
+                f"queue needs)", smi, n, nbytes["bound"])
+            out[label] = dict(kernel_ms=k, eager_ms=e, steps=steps, n=n,
+                              live=live, **nbytes)
+            del lanes, q, q_id
+            torch.cuda.empty_cache()
+        del scene, cam
+        torch.cuda.empty_cache()
+    return out
+
+
+def compact_main() -> int:
+    """python3 chip_smoke.py --compact: phases 1, 2 and 4e alone."""
+    smi = phase_device()
+    phase_build()
+    timed_phase("compaction", phase_compaction, smi)
+    log("[compact] ok")
+    return 0
 
 
 def stages_main() -> int:
@@ -2300,6 +2440,7 @@ def main() -> int:
     times = phase_times(kern, plain, {"primary": prim1m, "bounce": bounce1m},
                         smi, "traverse8 sponza_proc")
     timed_phase("bounce stages", phase_stages, scene, *bounce1m, smi)
+    timed_phase("compaction", phase_compaction, smi)
     b8 = bound("traverse8", scene, kern, *bounce1m,
                "traverse8 sponza_proc bounce 1M")
     phase_masked(kern, plain, *bounce1m, smi, "traverse8 sponza_proc bounce")
@@ -2508,4 +2649,5 @@ def cards_main() -> int:
 
 if __name__ == "__main__":
     sys.exit(cards_main() if sys.argv[1:] == ["--cards"] else
-             stages_main() if sys.argv[1:] == ["--stages"] else main())
+             stages_main() if sys.argv[1:] == ["--stages"] else
+             compact_main() if sys.argv[1:] == ["--compact"] else main())

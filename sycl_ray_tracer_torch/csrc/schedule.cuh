@@ -128,4 +128,18 @@ inline cudaError_t persistent_grid(K kernel, int threads, int64_t n,
   return cudaSuccess;
 }
 
+// Launches `kernel` on the persistent grid of `threads` a block for n
+// lanes on stream s (nothing when n <= 0); returns the first CUDA error
+// as an int.
+template <class K, class... Args>
+inline int launch_persistent(K kernel, int threads, int64_t n,
+                             cudaStream_t s, Args... args) {
+  if (n <= 0) return 0;
+  int grid = 0;
+  cudaError_t err = persistent_grid(kernel, threads, n, &grid);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, 0, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace srt

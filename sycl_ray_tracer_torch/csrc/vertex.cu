@@ -71,12 +71,7 @@ scatter_paths_kernel(srt::Bounce b, srt::PathIO io) {
 
 template <class K, class... Args>
 int launch(K kernel, int64_t n, cudaStream_t s, Args... args) {
-  if (n <= 0) return 0;
-  int grid = 0;
-  cudaError_t err = srt::persistent_grid(kernel, kThreads, n, &grid);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, 0, s>>>(args...);
-  return (int)cudaGetLastError();
+  return srt::launch_persistent(kernel, kThreads, n, s, args...);
 }
 
 }  // namespace

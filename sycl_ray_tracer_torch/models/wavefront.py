@@ -35,6 +35,7 @@ import torch
 from sycl_ray_tracer_torch.models import materials as mats
 from sycl_ray_tracer_torch.models import trace as _trace
 from sycl_ray_tracer_torch.models.camera import Camera, generate_rays
+from sycl_ray_tracer_torch.ops import compact as _compact_ops
 from sycl_ray_tracer_torch.ops import rng as _rng
 from sycl_ray_tracer_torch.ops import vertex as _vertex
 from sycl_ray_tracer_torch.ops.lbvh import morton30
@@ -111,7 +112,9 @@ def _bounce(scene, q: torch.Tensor, q_id: torch.Tensor, bounce_idx: int,
     in place, and return the compacted survivors (q, q_id). Each stage
     runs in utils/profile.py:stage (prof: the frame's FrameProfile, or
     None). On the card shade and scatter are one kernel each
-    (_stages_by_hand); on the CPU they are plain torch (_stages_plain)."""
+    (_stages_by_hand) and the compaction a key pass, a sort and a gather
+    (_compact_by_hand); on the CPU they are plain torch (_stages_plain,
+    _compact_plain)."""
     o, d = V3(q[0], q[1], q[2]), V3(q[3], q[4], q[5])
 
     with _profile.stage(prof, "intersect"):
@@ -119,17 +122,41 @@ def _bounce(scene, q: torch.Tensor, q_id: torch.Tensor, bounce_idx: int,
         miss = hit.tri < 0
 
     stages = _stages_by_hand if q.is_cuda else _stages_plain
-    new_dir, new_att, rad_hit, terminated = stages(
-        scene, q, q_id, hit, miss, bounce_idx, acc, seed, sample_offset,
-        lane, rr, prof)
-
+    lanes = [hit.t, *stages(scene, q, q_id, hit, miss, bounce_idx, acc, seed,
+                            sample_offset, lane, rr, prof)]
+    del o, d, hit, miss
+    compact = _compact_by_hand if q.is_cuda else _compact_plain
     with _profile.stage(prof, "compact"):
-        new_o = o + d * hit.t
-        perm = _compact(~terminated, _coherence_key(scene, new_o, new_dir),
-                        prof)
-        q2 = torch.stack([*new_o, *new_dir, *new_att, *rad_hit])[:, perm]
-        q_id2 = q_id[perm]
-    return q2, q_id2
+        return compact(scene, q, q_id, lanes, prof)
+
+
+def _compact_plain(scene, q, q_id, lanes, prof):
+    """The compact stage of _bounce in plain torch, on the lanes' [t,
+    new_dir, new_att, rad_hit, terminated]: the survivors' rows (new
+    origin o + d * t, new_dir, new_att, rad_hit) and q_id, in the order
+    of _compact."""
+    t, new_dir, new_att, rad_hit, terminated = lanes
+    o, d = V3(q[0], q[1], q[2]), V3(q[3], q[4], q[5])
+    new_o = o + d * t
+    perm = _compact(~terminated, _coherence_key(scene, new_o, new_dir), prof)
+    q2 = torch.stack([*new_o, *new_dir, *new_att, *rad_hit])[:, perm]
+    return q2, q_id[perm]
+
+
+def _compact_by_hand(scene, q, q_id, lanes, prof):
+    """_compact_plain as one key pass, a stable radix sort of its 32-bit
+    keys and one gather launch (ops/compact.py): the same next queue bit
+    for bit. The key pass copies what the next queue needs into its
+    records, so `lanes` is emptied after it: the bounce's hits and stage
+    outputs are freed before the sort and the gather allocate. The host
+    reads the live count once, after queueing the sort."""
+    key, rec, stats = _compact_ops.keys(scene, q, q_id, *lanes)
+    lanes.clear()
+    perm = _compact_ops.sort(key, stats)
+    del key
+    with _profile.sync(prof, "live"):
+        live = int(stats[0])
+    return _compact_ops.gather(rec, perm[:live])
 
 
 def _stages_plain(scene, q, q_id, hit, miss, bounce_idx, acc, seed,

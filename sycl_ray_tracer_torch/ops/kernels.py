@@ -3,9 +3,10 @@
 Every CUDA source in csrc/ (CUDA_SOURCES) is compiled by nvcc for
 sm_90a, one process per source, all started together, and linked into
 one shared library with a plain C interface in build/kernels/, at the
-first launch; ctypes loads it. The host build of the same per-ray walks
-and per-lane bounce stages (csrc/walk_host.cpp, csrc/vertex_host.cpp,
-g++) is the CPU tests' view of the kernels' code.
+first launch; ctypes loads it. The host build of the same per-ray walks,
+per-lane bounce stages and queue compaction (csrc/walk_host.cpp,
+csrc/vertex_host.cpp, csrc/compact_host.cpp, g++) is the CPU tests' view
+of the kernels' code.
 Both libraries are keyed by a hash of every file in csrc/ plus the
 compiler and its flags, so an edit rebuilds them.
 """
@@ -31,12 +32,13 @@ STACK = 128
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-CUDA_SOURCES = ("traverse8.cu", "traverse5.cu", "traverse1.cu", "vertex.cu")
+CUDA_SOURCES = ("traverse8.cu", "traverse5.cu", "traverse1.cu", "vertex.cu",
+                "compact.cu")
 # kernels whose C entry takes scheduling scratch after n_rays: the list
 # of live lanes (int32 [R], with an active mask) and two zeroed 64-bit
 # counters (csrc/schedule.cuh)
 SCHEDULED = ("traverse8", "traverse5", "traverse1")
-HOST_SOURCES = ("walk_host.cpp", "vertex_host.cpp")
+HOST_SOURCES = ("walk_host.cpp", "vertex_host.cpp", "compact_host.cpp")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math (dead slots need IEEE inf/NaN). FMA contraction is
 # off so that the kernels round exactly as their plain torch versions
@@ -55,11 +57,15 @@ _I64 = ctypes.c_int64
 _TABLES = {"traverse8": [_P, _P, _P, _I32],
            "traverse5": [_P, _P, _P, _P, _P, _I32],
            "traverse1": [_P, _P, _I32, _I32, _I32]}
-# argument types of the bounce stages' C entry points (csrc/vertex.cu),
-# ahead of the stream (card); their structs are built by ops/vertex.py
+# argument types of the bounce stages' and the compaction's C entry
+# points (csrc/vertex.cu, csrc/compact.cu), ahead of the stream (card);
+# their structs are built by ops/vertex.py and ops/compact.py
 _STAGES = {"shade": [_P, _P, _I32, _P, _P, _P, _I64],
            "scatter_queue": [_P, _P],
-           "scatter_paths": [_P, _P]}
+           "scatter_paths": [_P, _P],
+           "compact_keys": [_P, _P],
+           "compact_sort": [_P],
+           "compact_gather": [_P, _P, _I64, _P, _P]}
 
 _lib = None
 _host_lib = None
@@ -169,6 +175,8 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             if name in SCHEDULED:
                 fn.argtypes = fn.argtypes[:-1] + [_P, _P, _P]
+        lib.srt_compact_sort_scratch.argtypes = [_I64]
+        lib.srt_compact_sort_scratch.restype = _I64
         _lib = lib
     return _lib
 
@@ -183,6 +191,29 @@ def load_host_library() -> ctypes.CDLL:
             getattr(lib, f"srt_{name}_host").restype = None
         _host_lib = lib
     return _host_lib
+
+
+def entry_device(t: torch.Tensor) -> torch.device:
+    """t's device, where the entries of _STAGES run: cuda (the kernel) or
+    cpu (its host build)."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the bounce stages and the compaction run on cuda "
+                         f"or cpu, not {t.device}")
+    return t.device
+
+
+def call(name: str, dev: torch.device, *args) -> None:
+    """Run entry srt_<name> of the stages' or the compaction's (_STAGES):
+    the kernel on the current stream of a CUDA device, or its host build
+    on the CPU."""
+    if dev.type == "cpu":
+        getattr(load_host_library(), f"srt_{name}_host")(*args)
+        return
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(load_library(), f"srt_{name}")(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def resolve_device(device) -> torch.device:

@@ -68,26 +68,6 @@ class _PathIO(ctypes.Structure):
     _fields_ = [("col", _P * 15), ("done", _P), ("key", _P)]
 
 
-def _call(name: str, dev: torch.device, *args) -> None:
-    """Run entry srt_<name>: the kernel on the current stream of a CUDA
-    device, or its host build on the CPU."""
-    if dev.type == "cpu":
-        getattr(kernels.load_host_library(), f"srt_{name}_host")(*args)
-        return
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(kernels.load_library(), f"srt_{name}")(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
-def _device(t: torch.Tensor) -> torch.device:
-    if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"the bounce stages run on cuda or cpu, not "
-                         f"{t.device}")
-    return t.device
-
-
 def _tables(scene, dev) -> _ShadeTables:
     """The scene's shading tables, checked: shade_tbl is read with
     16-byte loads."""
@@ -122,7 +102,7 @@ def _tables(scene, dev) -> _ShadeTables:
 def shade(scene, hit) -> torch.Tensor:
     """The shading records [12, N] of the N lanes of `hit` (ids in the
     shading tables' slots, -1 on a miss; int32 or int64)."""
-    dev = _device(hit.t)
+    dev = kernels.entry_device(hit.t)
     n = hit.t.shape[0]
     if hit.tri.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"tri: expected int32 or int64, got {hit.tri.dtype}")
@@ -131,9 +111,9 @@ def shade(scene, hit) -> torch.Tensor:
         kernels.check(name, c, torch.float32, (n,), dev)
     tables = _tables(scene, dev)
     rec = torch.empty((REC_ROWS, n), dtype=torch.float32, device=dev)
-    _call("shade", dev, ctypes.byref(tables), hit.tri.data_ptr(),
-          hit.tri.element_size(), hit.u.data_ptr(), hit.v.data_ptr(),
-          rec.data_ptr(), n)
+    kernels.call("shade", dev, ctypes.byref(tables), hit.tri.data_ptr(),
+                 hit.tri.element_size(), hit.u.data_ptr(), hit.v.data_ptr(),
+                 rec.data_ptr(), n)
     if dev.type == "cuda":
         shade.launches += 1
     return rec
@@ -158,7 +138,7 @@ def scatter(scene, rec: torch.Tensor, hit_t: torch.Tensor,
     if (state is None) == (q is None):
         raise ValueError("scatter takes either state and key (megakernel) "
                          "or q, q_id and lane (wavefront)")
-    dev = _device(rec)
+    dev = kernels.entry_device(rec)
     n = rec.shape[1] if rec.dim() == 2 else -1
     kernels.check("rec", rec, torch.float32, (REC_ROWS, n), dev)
     kernels.check("hit_t", hit_t, torch.float32, (n,), dev)
@@ -180,7 +160,8 @@ def scatter(scene, rec: torch.Tensor, hit_t: torch.Tensor,
         kernels.check("key", key, torch.int64, (n,), dev)
         io = _PathIO((_P * 15)(*(c.data_ptr() for c in cols)),
                      state.done.data_ptr(), key.data_ptr())
-        _call("scatter_paths", dev, ctypes.byref(bounce), ctypes.byref(io))
+        kernels.call("scatter_paths", dev, ctypes.byref(bounce),
+                     ctypes.byref(io))
         result = state
     else:
         kernels.check("q", q, torch.float32, (12, n), dev)
@@ -195,7 +176,8 @@ def scatter(scene, rec: torch.Tensor, hit_t: torch.Tensor,
                       lane.shape[0], sample_offset, out.data_ptr(),
                       terminated.data_ptr(), contrib.data_ptr(),
                       seed & _MASK, 0)
-        _call("scatter_queue", dev, ctypes.byref(bounce), ctypes.byref(io))
+        kernels.call("scatter_queue", dev, ctypes.byref(bounce),
+                     ctypes.byref(io))
         result = out, terminated, contrib
     if dev.type == "cuda":
         scatter.launches += 1

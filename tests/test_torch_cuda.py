@@ -3,7 +3,10 @@ plain versions and their host builds (at ray counts around a warp, and
 under masks), the bounce stages' shade and scatter kernels against the
 plain torch stages (at lane counts around a warp, under done masks, with
 russian roulette off and on) and their launches per bounce, the
-wrappers' input checks, small renders (baked,
+wavefront's compaction by hand against the plain compaction (at lane
+counts around a block, with no lane live, and on every bounce of small
+frames of a baked and a two-level scene) and its launches per bounce,
+the wrappers' input checks, small renders (baked,
 Morton heap through the megakernel, and two-level instanced, the voxel
 scene's included) on cuda against the same renders on the cpu, traverse5
 itf against its plain walk on that scene's bounce rays, the measuring
@@ -40,6 +43,7 @@ from sycl_ray_tracer_torch.utils import procgen as tproc
 from sycl_ray_tracer_torch.utils.gltf import load_glb
 from sycl_ray_tracer_torch.models.scene import build_device_scene
 from sycl_ray_tracer_torch.models.camera import make_camera
+from sycl_ray_tracer_torch.ops import compact
 from sycl_ray_tracer_torch.ops import kernels
 from sycl_ray_tracer_torch.ops import vertex
 
@@ -666,6 +670,163 @@ def test_stage_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError, match="overlap"):
         vertex.scatter(scene, rec, hit.t, miss, 2,
                        state=st._replace(rad=st.att), key=key)
+
+
+_PLAIN_COMPACT = twf._compact_plain
+_BY_HAND_COMPACT = twf._compact_by_hand
+
+
+def _compact_launches():
+    return (compact.keys.launches, compact.sort.launches,
+            compact.gather.launches)
+
+
+def _hold_compaction(scene, q, q_id, lanes):
+    """The compaction by hand (key pass, sort, gather) against the plain
+    one on the card, on the lanes [t, new_dir, new_att, rad_hit,
+    terminated] of a bounce: the next queue and its ids equal bit for
+    bit, and the by-hand path empties the list. Returns the next queue
+    by hand."""
+    plain = _PLAIN_COMPACT(scene, q, q_id, lanes, None)
+    before = _compact_launches()
+    mine = _BY_HAND_COMPACT(scene, q, q_id, lanes, None)
+    assert lanes == []
+    assert _compact_launches() == tuple(b + 1 for b in before)
+    assert torch.equal(mine[0].view(torch.int32), plain[0].view(torch.int32))
+    assert torch.equal(mine[1], plain[1])
+    return mine
+
+
+_COMPACT_LANES = [0, 1, 31, 255, 256, 257, 1 << 20]
+
+
+@pytest.mark.parametrize("r", _COMPACT_LANES)
+@pytest.mark.parametrize("dead", ["some", "all"])
+def test_compaction_matches_plain_at_lane_counts(cuda, r, dead):
+    """One bounce of r lanes on sponza scale 1 (half camera rays, half
+    from points in the scene) through the plain stages, at lane counts
+    around a block's 256 threads, then compacted both ways; with every
+    lane terminated the next queue is empty."""
+    scene, st, hit, _ = _stage_lanes(cuda, r)
+    q = torch.stack([*st.o, *st.d, *st.att, *st.rad])
+    q_id = torch.arange(r, device=cuda) * 3 + 2
+    acc = torch.zeros((max(r, 1), 3), device=cuda)
+    nd, na, rh, term = twf._stages_plain(
+        scene, q, q_id, hit, hit.tri < 0, 1, acc, 11, 0,
+        torch.arange(max(r, 1), device=cuda), False, None)
+    if dead == "all":
+        term = torch.ones_like(term)
+    q2, q_id2 = _hold_compaction(scene, q, q_id, [hit.t, nd, na, rh, term])
+    assert q_id2.numel() == int((~term).sum())
+    if r == 1 << 20 and dead == "some":
+        assert 0 < q_id2.numel() < r
+
+
+def _compaction_scenes(dev):
+    """(scene, camera) of sponza scale 1 and of tests/test_torch_voxels.py's
+    voxel world on `dev`, 64x48."""
+    from srt_bench.scenes import voxels
+    from sycl_ray_tracer_torch.utils.cli import load_scene
+
+    out = {}
+    for name, glb, two_level in (
+            ("sponza", tproc.sponza_like_glb(scale=1), False),
+            ("voxels", voxels.voxel_world_glb(
+                n=32, seed=3, water_level=5, pitch=0.6, height=4.0), True)):
+        scene, host = load_scene(glb, dev, two_level, log=lambda *a: None)
+        out[name] = scene, make_camera(
+            64, 48, host.camera_position, host.camera_direction,
+            host.camera_focal_length, device=dev)
+    return out
+
+
+def test_compaction_matches_plain_on_frame_bounces(cuda, monkeypatch):
+    """Every bounce of a 64x48, 4-spp, depth-10 frame of each scene: the
+    compaction by hand gives the plain compaction's next queue bit for
+    bit, and the frame launches the key pass and the gather once per
+    bounce run. The frame with the plain compaction has the same tallies
+    exactly (the queues are the same), and its image agrees within 1e-5:
+    the pixel sums are index_add_'s atomics, whose order varies from run
+    to run."""
+    for name, (scene, cam) in _compaction_scenes(cuda).items():
+        calls = []
+
+        def both(scene, q, q_id, lanes, prof):
+            calls.append(q.shape[1])
+            return _hold_compaction(scene, q, q_id, lanes)
+
+        monkeypatch.setattr(twf, "_compact_by_hand", both)
+        kw = dict(width=64, height=48, spp=4, max_depth=10,
+                  seed=(1 << 40) + 9)
+        img, rays = render_wavefront(scene, cam, **kw)
+        bounces = int((rays > 0).sum())
+        assert calls == rays[:bounces].tolist(), name
+        assert bounces >= 6
+        monkeypatch.setattr(twf, "_compact_by_hand", _BY_HAND_COMPACT)
+        before = _compact_launches()
+        img_h, rays_h = render_wavefront(scene, cam, **kw)
+        assert tuple(a - b for a, b in zip(_compact_launches(), before)) \
+            == (bounces,) * 3
+        monkeypatch.setattr(twf, "_compact_by_hand", _PLAIN_COMPACT)
+        img_p, rays_p = render_wavefront(scene, cam, **kw)
+        assert torch.equal(rays_h, rays_p) and torch.equal(rays_h, rays)
+        assert float((img_h - img_p).abs().max()) <= 1e-5, name
+        monkeypatch.undo()
+
+
+def test_compaction_wrappers_refuse_bad_inputs(cuda):
+    scene, st, hit, _ = _stage_lanes(cuda, 64)
+    q = torch.stack([*st.o, *st.d, *st.att, *st.rad])
+    term = hit.tri < 0
+    q_id = torch.arange(64, device=cuda)
+    args = (scene, q, q_id, hit.t, st.d, st.att, st.rad, term)
+    for i, bad in ((1, q[:, :-1]), (1, q.double()), (2, q_id.int()),
+                   (3, hit.t.cpu()), (4, V3(st.d.x[:-1], st.d.y, st.d.z)),
+                   (7, term.to(torch.uint8))):
+        with pytest.raises(ValueError):
+            compact.keys(*(bad if k == i else a for k, a in enumerate(args)))
+    key, rec, stats = compact.keys(*args)
+    for bad in ((key.long(), stats), (key, stats[:-1]), (key.cpu(), stats)):
+        with pytest.raises(ValueError):
+            compact.sort(*bad)
+    perm = torch.arange(64, dtype=torch.int32, device=cuda)
+    for bad in ((rec[:, :-1], perm), (rec, perm.long()),
+                (rec, torch.arange(65, dtype=torch.int32, device=cuda)),
+                (rec.cpu(), perm)):
+        with pytest.raises(ValueError):
+            compact.gather(*bad)
+
+
+def _digit_stats(key: torch.Tensor) -> torch.Tensor:
+    """compact.keys' stats for keys [n] (unsigned words in int64): no
+    live count, each 8-bit digit's counts."""
+    return torch.cat([torch.zeros(1, dtype=torch.int64, device=key.device)]
+                     + [torch.bincount((key >> (8 * p)) & 255, minlength=256)
+                        for p in range(4)])
+
+
+# a radix sort tile is 4,096 keys
+_SORT_SIZES = [1, 4095, 4096, 4097, 3 * 4096 + 5, (1 << 20) + 7]
+
+
+@pytest.mark.parametrize("n", _SORT_SIZES)
+@pytest.mark.parametrize("keys", ["random", "few", "equal", "dead"])
+def test_radix_sort_matches_stable_argsort(cuda, n, keys):
+    """The by-hand radix sort against torch's stable argsort of the same
+    unsigned keys: random 32-bit words, 37 distinct values (long runs of
+    ties, which must keep lane order), one value, and the dead sentinel
+    on every lane, at sizes around the 4,096-key tile."""
+    gen = torch.Generator().manual_seed(n)
+    key = {"random": torch.randint(0, 2**32, (n,), generator=gen),
+           "few": torch.randint(0, 37, (n,), generator=gen) * 0x5A5A5A5,
+           "equal": torch.full((n,), 0x12345678),
+           "dead": torch.full((n,), 0xFFFFFFFF)}[keys].to(cuda)
+    want = torch.argsort(key, stable=True)
+    before = compact.sort.launches
+    perm = compact.sort(key.to(torch.int32),
+                        _digit_stats(key))
+    assert compact.sort.launches == before + 1
+    assert perm.dtype == torch.int32 and torch.equal(perm.long(), want)
 
 
 def test_lbvh_walk_cuda_matches_cpu(cuda):
