@@ -151,18 +151,12 @@ Phases (any failure raises and exits non-zero):
    renders agree bit for bit, with the same launch check;
 22. the CLI on the card: --devices 2 exits non-zero naming the device
    count, and --devices 1 --scale 2 2 2 prints the three contract lines.
-23. the measuring entry points: (c) after 8, the headline frames of 7
-   and 8 again with SRT_PROFILE=1, timed by the CLI's timed_frame (after
-   16, that of 15 too): tallies equal, images within 1e-6 RMSE of the
-   frames without the profile, and the time of each stage (generate,
-   intersect, shade, scatter, accumulate, compact; the megakernel's
-   live-count read "count") from CUDA events, printed beside the frame's
-   seconds and the host's clock outside the stages, which must explain
-   what the stages leave of the frame to within 5 % of it; (d) each of
-   those frames under the CLI's traced_frame (SRT_TRACE_DIR's
-   torch.profiler trace): the trace is written, the path's kernel shows
-   device time (its calls printed beside the frame's launches), and the
-   device's busy share is printed; then, at the end, (a) bench_torch.py
+23. the measuring entry points: (d) after 8, the headline frames of 7
+   and 8 (after 16, that of 15 too) under the CLI's traced_frame
+   (SRT_TRACE_DIR's torch.profiler trace): the trace is written, the
+   path's kernel shows device time (its calls printed beside the
+   frame's launches), the tallies are the frame's, and the device's
+   busy share is printed; then, at the end, (a) bench_torch.py
    with BENCH_RUNS=2, whose seed-0 run counts phase 7's rays, (b)
    benchmark_torch.py --inproc on cube and sponza_proc with both
    engines at 256x256, 4 spp, depth 10, runs 0-2: both CSVs with the
@@ -1065,7 +1059,7 @@ def phase_stages(scene, o, d, smi: str) -> dict:
     for stages in (wf._stages_plain, wf._stages_by_hand):
         acc = torch.zeros((n, 3), device=dev)
         nd, na, rh, term = stages(scene, q, q_id, hit, miss, bounce, acc,
-                                  seed, 0, lane, False, None)
+                                  seed, 0, lane, False)
         out.append((torch.stack([*nd, *na, *rh]), term, acc))
     (a, ta, acc_a), (b, tb, acc_b) = out
     same(ta, tb, "wavefront terminated flags")
@@ -1171,8 +1165,7 @@ def compaction_lanes(scene, cam, width: int, height: int, waves: int,
     hit = tr.intersect_scene(scene, V3(q[0], q[1], q[2]),
                              V3(q[3], q[4], q[5]))
     nd, na, rh, term = wf._stages_by_hand(scene, q, q_id, hit, hit.tri < 0,
-                                          bounce, acc, seed, 0, lane, False,
-                                          None)
+                                          bounce, acc, seed, 0, lane, False)
     return q, q_id, [hit.t, nd, na, rh, term]
 
 
@@ -1206,8 +1199,8 @@ def phase_compaction(smi: str) -> dict:
             n = q.shape[1]
             label = (f"{config['name']} {waves}-spp wave, bounce {bounce}, "
                      f"{n} lanes")
-            plain = wf._compact_plain(scene, q, q_id, lanes, None)
-            mine = wf._compact_by_hand(scene, q, q_id, list(lanes), None)
+            plain = wf._compact_plain(scene, q, q_id, lanes)
+            mine = wf._compact_by_hand(scene, q, q_id, list(lanes))
             live = plain[1].numel()
             if not (torch.equal(mine[0].view(torch.int32),
                                 plain[0].view(torch.int32))
@@ -1243,9 +1236,8 @@ def phase_compaction(smi: str) -> dict:
                 f"{nbytes['design'] / n:.1f} bytes a lane moved, "
                 f"{100 * share:.1f} % of 3.35 TB/s over the three")
             k, e = time_turns(
-                lambda: wf._compact_plain(scene, q, q_id, lanes, None),
-                lambda: wf._compact_by_hand(scene, q, q_id, list(lanes),
-                                            None),
+                lambda: wf._compact_plain(scene, q, q_id, lanes),
+                lambda: wf._compact_by_hand(scene, q, q_id, list(lanes)),
                 f"compaction, {label} ({live} live; bound: bytes the next "
                 f"queue needs)", smi, n, nbytes["bound"])
             out[label] = dict(kernel_ms=k, eager_ms=e, steps=steps, n=n,
@@ -1910,51 +1902,16 @@ SWEEP_COLUMNS = {
             "mrays_per_sec", "total_rays"]}
 
 
-def phase_stage_split(render, scene, cam, smi: str, label: str, kernel: str,
-                      launches: int, ref: tuple) -> None:
-    """Phase 23 (c, d) for one headline frame of 7, 8 or 15 (ref: its
-    image, tallies and seconds; `launches` of `kernel`): the frame again
-    with SRT_PROFILE=1, timed by utils/cli.py:timed_frame, with tallies
-    equal to ref's and the image within 1e-6 RMSE of it (two frames on
-    the card differ only in index_add_'s atomic order); its stage times
-    from CUDA events against the frame's seconds, beside the host's own
-    clock outside the stages. Then the frame (profile off) under
+def phase_trace(render, scene, cam, smi: str, label: str, kernel: str,
+               launches: int, ref_rays) -> None:
+    """Phase 23 (d) for one headline frame of 7, 8 or 15 (ref_rays: its
+    tallies; `launches` of `kernel`): the frame under
     utils/cli.py:traced_frame: the trace is written, `kernel` shows
-    device time (its calls printed beside the frame's `launches`), and
-    the busy share is printed."""
-    from sycl_ray_tracer_torch.utils.cli import timed_frame, traced_frame
+    device time (its calls printed beside the frame's `launches`), the
+    tallies equal ref_rays, and the busy share is printed."""
+    from sycl_ray_tracer_torch.utils.cli import traced_frame
 
     dev = cam.center.device
-    ref_img, ref_rays, ref_secs = ref
-    profs = []
-    os.environ["SRT_PROFILE"] = "1"
-    try:
-        (img, rays), secs = timed_frame(
-            lambda: render(scene, cam, **HEADLINE), dev, profs)
-    finally:
-        del os.environ["SRT_PROFILE"]
-    err = rmse(img.cpu().numpy(), ref_img)
-    (p,) = profs
-    frame_ms = secs * 1e3
-    host_out = frame_ms - p["host_stage_ms"]
-    log(f"[stages] {label} 1024x1024 spp64 d10 on {smi}: frame "
-        f"{frame_ms:.3f} ms with SRT_PROFILE=1 ({ref_secs * 1e3:.3f} ms "
-        f"without, phase 7/8/15); stages {p['stage_ms']:.3f} ms on the "
-        f"card (first to last {p['span_ms']:.3f} ms), remainder "
-        f"{frame_ms - p['stage_ms']:.3f} ms; the host's clock outside the "
-        f"stages {host_out:.3f} ms; by stage (ms, share of the frame): "
-        + ", ".join(f"{k} {v:.3f} ({100 * v / frame_ms:.2f} %)"
-                    for k, v in p["stages"].items())
-        + f"; RMSE {err:.3g} against the frame without the profile, "
-        f"tallies {rays.tolist()}")
-    if not (rays.numpy() == ref_rays).all() or err >= 1e-6:
-        raise AssertionError(f"{label}: the profiled frame differs from the "
-                             "frame without the profile")
-    if not (0.5 * frame_ms <= p["stage_ms"] <= frame_ms
-            and frame_ms - p["stage_ms"] <= host_out + 0.05 * frame_ms):
-        raise AssertionError(f"{label}: the stages do not account for the "
-                             "frame")
-
     work = os.path.join(ROOT, "build", "smoke", "trace",
                         re.sub(r"\W+", "_", label))
     (_, rays), secs, st = traced_frame(
@@ -1975,20 +1932,19 @@ def phase_stage_split(render, scene, cam, smi: str, label: str, kernel: str,
                              f"{kernel}, or the frame differs")
 
 
-def phase_stage_split_both(scene, cam, smi: str, wavefront: tuple,
-                           wf_launches: int, megakernel: tuple,
-                           mk_launches: int) -> None:
-    """Phase 23 (c, d) on phase 7's scene: the wavefront and megakernel
-    headline frames (refs and traverse8 launches of 7 and 8)."""
+def phase_trace_both(scene, cam, smi: str, wf_rays, wf_launches: int,
+                     mk_rays, mk_launches: int) -> None:
+    """Phase 23 (d) on phase 7's scene: the wavefront and megakernel
+    headline frames (tallies and traverse8 launches of 7 and 8)."""
     from sycl_ray_tracer_torch.models.megakernel import render_megakernel
     from sycl_ray_tracer_torch.models.wavefront import render_wavefront
 
-    phase_stage_split(render_wavefront, scene, cam, smi,
-                      "sponza_proc scale 2 wavefront", "traverse8",
-                      wf_launches, wavefront)
-    phase_stage_split(render_megakernel, scene, cam, smi,
-                      "sponza_proc scale 2 megakernel", "traverse8",
-                      mk_launches, megakernel)
+    phase_trace(render_wavefront, scene, cam, smi,
+                "sponza_proc scale 2 wavefront", "traverse8", wf_launches,
+                wf_rays)
+    phase_trace(render_megakernel, scene, cam, smi,
+                "sponza_proc scale 2 megakernel", "traverse8", mk_launches,
+                mk_rays)
 
 
 def sweep_totals(scene, host) -> dict:
@@ -2470,9 +2426,8 @@ def main() -> int:
         raise AssertionError("megakernel and wavefront headline tallies "
                              "differ")
     megakernel_bound(scene, cam, "sponza_proc scale 2 megakernel traverse8")
-    timed_phase("stage split and trace, sponza_proc", phase_stage_split_both,
-                scene, cam, smi, (img8, rays8, secs8), launches8,
-                (mk_img, mk_rays_sponza, mk_secs), mk_launches)
+    timed_phase("trace, sponza_proc", phase_trace_both, scene, cam, smi,
+                rays8, launches8, mk_rays_sponza, mk_launches)
     sweep_refs = {"sponza_proc": sweep_totals(scene, host)}
 
     # ---- the Morton-heap path (leaf_size 4, traverse1) ----
@@ -2533,7 +2488,7 @@ def main() -> int:
     phase_masked(kern, plain, *bounce1m, smi,
                  "traverse5 itf minecraft_proc bounce")
     del prim1m, bounce1m
-    launches5, rays5, img5, secs5 = phase_headline(
+    launches5, rays5, _, _ = phase_headline(
         render_wavefront, scene, cam, smi, "minecraft_proc --shared-instances",
         traverse5, (traverse8, traverse1))
     report["traverse5"] = dict(launches=launches5, max_abs_err=err5,
@@ -2550,10 +2505,9 @@ def main() -> int:
                              "headline tallies differ")
     megakernel_bound(scene, cam, "minecraft_proc --shared-instances "
                      "megakernel traverse5", "traverse5", stride=8)
-    timed_phase("stage split and trace, minecraft_proc", phase_stage_split,
-                render_wavefront, scene, cam, smi,
-                "minecraft_proc --shared-instances wavefront", "traverse5",
-                launches5, (img5, rays5, secs5))
+    timed_phase("trace, minecraft_proc", phase_trace, render_wavefront,
+                scene, cam, smi, "minecraft_proc --shared-instances "
+                "wavefront", "traverse5", launches5, rays5)
     del scene, cam, ih, kern, plain
     torch.cuda.empty_cache()
 

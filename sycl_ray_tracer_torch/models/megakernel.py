@@ -49,34 +49,29 @@ WAVE_RAYS = 8 << 20
 
 
 def _wave(scene, cam: Camera, seed: int, sample_offset: int, rays,
-          *, pixels, max_depth: int, waves: int, rr: bool,
-          prof=None) -> torch.Tensor:
+          *, pixels, max_depth: int, waves: int, rr: bool) -> torch.Tensor:
     """`waves` samples of each of the R pixels (px, py, lane) = `pixels`
     from sample_offset on; adds the per-bounce tallies into rays
     [max_depth] (numpy int64) and returns the wave's linear color summed
-    over its samples, [R, 3]. prof: the frame's FrameProfile, or None
-    (utils/profile.py)."""
+    over its samples, [R, 3]."""
     px, py, lane = pixels
     r = lane.shape[0]
-    with _profile.stage(prof, "generate"):
+    with _profile.stage("generate"):
         ids = torch.arange(waves * r, dtype=torch.int64, device=lane.device)
         idx = ids % r
         key = _rng.make_key(_rng.make_key(seed, sample_offset + ids // r),
                             lane[idx])
         st = _trace.start_state(*generate_rays(cam, px[idx], py[idx], key))
     for i in range(max_depth):
-        with _profile.stage(prof, "count"):
+        with _profile.stage("count"):
             live = (~st.done).sum()
-            with _profile.sync(prof, "live"):
+            with _profile.sync("live"):
                 live = int(live)
         if live == 0:
             break
         rays[i] += live
-        st = _trace.trace_step(scene, st, key, i + 2, rr=rr, prof=prof)
-        if prof is not None:
-            prof.row(f"wave@{sample_offset}x{waves} bounce {i}",
-                     f"live {live}")
-    with _profile.stage(prof, "accumulate"):
+        st = _trace.trace_step(scene, st, key, i + 2, rr=rr)
+    with _profile.stage("accumulate"):
         return torch.stack(st.result, dim=1).view(waves, r, 3).sum(dim=0)
 
 
@@ -93,13 +88,12 @@ def accumulate_megakernel(scene, cam: Camera, px: torch.Tensor,
     waves = max(1, min(spp, WAVE_RAYS // r))
     acc = torch.zeros((r, 3), dtype=torch.float32, device=lane.device)
     rays = np.zeros((max_depth,), np.int64)
-    prof = _profile.start("megakernel", lane.device)
     s = 0
     while s < spp:
         w = min(waves, spp - s)
         acc += _wave(scene, cam, seed, sample_offset + s, rays,
                      pixels=(px, py, lane), max_depth=max_depth, waves=w,
-                     rr=rr, prof=prof)
+                     rr=rr)
         s += w
     return acc, torch.from_numpy(rays)
 

@@ -152,34 +152,33 @@ def shade_lanes(scene, hit: Hit):
 
 
 def trace_step(scene, state: PathState, key: torch.Tensor,
-               bounce_counter: int, rr: bool = False,
-               prof=None) -> PathState:
+               bounce_counter: int, rr: bool = False) -> PathState:
     """Advance every lane that is not done by one path vertex; done
     lanes keep their state. Bounce i uses RNG counter i + 2 (0 and 1
     are the camera jitter). The expressions are those of the JAX
     package's trace_step (trace.py:466-519), in the same order, and per
     lane those of models/wavefront.py:_bounce, so that both engines
-    compute the same paths. The stages run in utils/profile.py:stage
-    (prof: the frame's FrameProfile, or None). On the card shade and
-    scatter are one kernel each (step_by_hand), which update the state
-    in place; on the CPU they are plain torch (step_plain)."""
-    with _profile.stage(prof, "intersect"):
+    compute the same paths. The stages run in utils/profile.py:stage.
+    On the card shade and scatter are one kernel each (step_by_hand),
+    which update the state in place; on the CPU they are plain torch
+    (step_plain)."""
+    with _profile.stage("intersect"):
         hit = intersect_scene(scene, state.o, state.d, active=~state.done)
         miss = hit.tri < 0
     step = step_by_hand if state.o.x.is_cuda else step_plain
-    return step(scene, state, hit, miss, key, bounce_counter, rr, prof)
+    return step(scene, state, hit, miss, key, bounce_counter, rr)
 
 
 def step_plain(scene, state: PathState, hit, miss: torch.Tensor,
-               key: torch.Tensor, bounce_counter: int, rr: bool = False,
-               prof=None) -> PathState:
+               key: torch.Tensor, bounce_counter: int,
+               rr: bool = False) -> PathState:
     """trace_step's shade, scatter and accumulate stages in plain torch,
     on the hits of the live lanes (done lanes: tri = -1); returns the
     new state."""
     o, d, att, rad = state.o, state.d, state.att, state.rad
     live = ~state.done
 
-    with _profile.stage(prof, "shade"):
+    with _profile.stage("shade"):
         sky = scene.sky_color
         # trace_ray.hpp:25-27
         res_miss = att * (V3(sky[0], sky[1], sky[2]) + rad)
@@ -188,7 +187,7 @@ def step_plain(scene, state: PathState, hit, miss: torch.Tensor,
         rad_hit = rad + mat.emissive  # trace_ray.hpp:64
         res_absorb = att * rad_hit  # trace_ray.hpp:77-79
 
-    with _profile.stage(prof, "scatter"):
+    with _profile.stage("scatter"):
         d_unit = normalize(d, eps=1e-20)
         cont, new_dir, s_att = mats.scatter(scene, mat, d_unit, normal,
                                             uv_u, uv_v, key, bounce_counter)
@@ -211,7 +210,7 @@ def step_plain(scene, state: PathState, hit, miss: torch.Tensor,
         new_att = where(scat_m, new_att_s, att)
         new_rad = where(scat_m, rad_hit, rad)
 
-    with _profile.stage(prof, "accumulate"):
+    with _profile.stage("accumulate"):
         # an RR kill contributes like an absorb: att * radiance-so-far
         result = where(term_miss, res_miss,
                        where(term_abs | term_rr, res_absorb, state.result))
@@ -221,14 +220,14 @@ def step_plain(scene, state: PathState, hit, miss: torch.Tensor,
 
 
 def step_by_hand(scene, state: PathState, hit, miss: torch.Tensor,
-                 key: torch.Tensor, bounce_counter: int, rr: bool = False,
-                 prof=None) -> PathState:
+                 key: torch.Tensor, bounce_counter: int,
+                 rr: bool = False) -> PathState:
     """trace_step's shade and scatter stages as one launch each
     (ops/vertex.py): the result and done updates are folded into the
     scatter, which updates `state` in place and returns it."""
-    with _profile.stage(prof, "shade"):
+    with _profile.stage("shade"):
         rec = _vertex.shade(scene, hit)
-    with _profile.stage(prof, "scatter"):
+    with _profile.stage("scatter"):
         return _vertex.scatter(scene, rec, hit.t, miss, bounce_counter,
                                rr=rr, rr_start=RR_START, state=state,
                                key=key)

@@ -36,7 +36,7 @@ def _u32(x, device=None) -> torch.Tensor:
     pageable memory that waits for the stream (the "scalar" wait of
     utils/profile.py:sync)."""
     if not isinstance(x, torch.Tensor):
-        with _profile.sync(_profile.current(), "scalar"):
+        with _profile.sync("scalar"):
             return torch.tensor(int(x) & _MASK, dtype=torch.int64,
                                 device=device)
     return x.to(torch.int64) & _MASK

@@ -100,13 +100,13 @@ def render_sharded(scene, cam: Camera, *, width: int, height: int,
         max_depth=max_depth, seed=seed, sample_offset=dpi * spp_local, rr=rr)
     frame = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     frame[spi * n_local:(spi + 1) * n_local] = acc
-    with _profile.sync(_profile.current(), "tallies"):
+    with _profile.sync("tallies"):
         rays = rays.to(dev)
     with record_function("srt.ranks.reduce"):
         dist.all_reduce(frame, dist.ReduceOp.SUM, group=mesh.group)
         dist.all_reduce(rays, dist.ReduceOp.SUM, group=mesh.group)
     img = linear_to_gamma(frame * (1.0 / spp))
-    with _profile.sync(_profile.current(), "tallies"):
+    with _profile.sync("tallies"):
         rays = rays.cpu()
     return img.reshape(height, width, 3), rays
 

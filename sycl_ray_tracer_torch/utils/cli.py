@@ -18,9 +18,9 @@ hardcoded 1920x1080 (main.cpp:36). Additions: --seed, --output, --rr,
 when no .glb is at hand; instanced_proc has SRT_INSTANCED_R cubes
 (1000 by default), as in the JAX CLI.
 
-Measurement switches, as in the JAX CLI: SRT_PROFILE=1 prints each
-frame's time by stage and bounce (utils/profile.py); SRT_TRACE_DIR=<dir>
-records a torch.profiler trace of the timed frame (traced_frame).
+Measurement switch: SRT_TRACE_DIR=<dir> records a torch.profiler trace
+of the timed frame and logs the device time of each stage of
+utils/profile.py and the count of each wait (traced_frame).
 
 --shared-instances loads the scene two-level, as the reference's
 Embree BLAS per primitive + TLAS of instances (scene.cpp:404-439): one
@@ -140,16 +140,12 @@ def load_scene(scene_bytes: bytes, device, shared_instances: bool,
     return build_device_scene(host, leaf_size, device=device), host
 
 
-def timed_frame(run, device, profiles: list | None = None):
+def timed_frame(run, device):
     """(run(), seconds): the time of a frame from a barrier of the ranks
     (under --devices) and a synchronize of the device before it to a
-    synchronize after it. Then, with SRT_PROFILE=1, prints the stage
-    profile of the frames rendered since the last report
-    (utils/profile.py:report) and adds them to `profiles` if given."""
+    synchronize after it."""
     import torch
     import torch.distributed as dist
-
-    from sycl_ray_tracer_torch.utils import profile
 
     def sync():
         if device.type == "cuda":
@@ -162,9 +158,6 @@ def timed_frame(run, device, profiles: list | None = None):
     out = run()
     sync()
     secs = time.perf_counter() - begin
-    read = profile.report()
-    if profiles is not None:
-        profiles.extend(read)
     return out, secs
 
 

@@ -1,9 +1,8 @@
 """The port's measuring entry points on the CPU: benchmark_torch.py's
 helpers against benchmark.py's on the cases of tests/test_benchmark.py,
 its sweep in process and in subprocess mode, bench_torch.py's JSON
-line, the refusal of both scripts without CUDA, the stage profile
-(SRT_PROFILE=1) and its trace ranges, the CLI's SRT_TRACE_DIR trace,
-and SRT_INSTANCED_R."""
+line, the refusal of both scripts without CUDA, the stage ranges in a
+profiler trace, the CLI's SRT_TRACE_DIR trace, and SRT_INSTANCED_R."""
 
 import csv
 import importlib
@@ -20,9 +19,7 @@ import torch
 from sycl_ray_tracer_torch.models.megakernel import render_megakernel
 from sycl_ray_tracer_torch.models.wavefront import render_wavefront
 from sycl_ray_tracer_torch.utils import fixtures as tfix
-from sycl_ray_tracer_torch.utils import profile
-from sycl_ray_tracer_torch.utils.cli import (resolve_scene_bytes,
-                                             timed_frame)
+from sycl_ray_tracer_torch.utils.cli import resolve_scene_bytes
 from sycl_ray_tracer_torch.utils.instanced import load_glb_instanced
 
 from tests.torch_common import port_pair
@@ -247,41 +244,14 @@ def test_scripts_refuse_missing_cuda(script, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
-# --- SRT_PROFILE and the trace ranges ---
+# --- the trace ranges ---
 
-_ENGINES = {"wavefront": (render_wavefront, profile.STAGES),
+_ENGINES = {"wavefront": (render_wavefront,
+                          ("generate", "intersect", "shade", "scatter",
+                           "accumulate", "compact")),
             "megakernel": (render_megakernel,
                            ("generate", "count", "intersect", "shade",
                             "scatter", "accumulate"))}
-
-
-@pytest.mark.parametrize("engine", list(_ENGINES))
-def test_profile_prints_each_bounce_and_changes_nothing(engine, monkeypatch,
-                                                       capsys):
-    render, stages = _ENGINES[engine]
-    _, scene, cam = port_pair(tfix.cube_scene_glb(), 32, 24)
-    kw = dict(_KW, seed=3)
-    img, rays = render(scene, cam, **kw)
-    assert not profile._unread  # off: no profile is made
-    monkeypatch.setenv("SRT_PROFILE", "1")
-    profs = []
-    (pimg, prays), secs = timed_frame(lambda: render(scene, cam, **kw),
-                                      torch.device("cpu"), profs)
-    assert torch.equal(img, pimg) and torch.equal(rays, prays)
-    lines = [ln for ln in capsys.readouterr().out.splitlines()
-             if ln.startswith("[profile]")]
-    bounces = [ln for ln in lines if " bounce " in ln]
-    assert len(bounces) == int((rays > 0).sum())
-    for b, ln in enumerate(bounces):
-        word = "queue" if engine == "wavefront" else "live"
-        assert f"wave@0x2 bounce {b}: " in ln
-        assert f"{word} {int(rays[b])}" in ln
-        assert all(f" {s} " in ln for s in stages), ln
-    assert lines[-1].startswith(f"[profile] {engine} frame: ")
-    (p,) = profs
-    assert set(p["stages"]) == set(stages)
-    assert 0 < p["stage_ms"] <= secs * 1e3
-    assert not profile._unread
 
 
 @pytest.mark.parametrize("engine", list(_ENGINES))
@@ -294,8 +264,7 @@ def test_stage_ranges_in_profiler(engine):
     with tprofile(activities=[ProfilerActivity.CPU]) as prof:
         render(scene, cam, seed=0, **_KW)
     names = {e.key for e in prof.key_averages()}
-    traced = [s for s in stages if s != "count"]
-    assert {f"srt.{s}" for s in traced} <= names, names
+    assert {f"srt.{s}" for s in stages} <= names, names
 
 
 def test_cli_trace_dir_writes_trace(tmp_path):

@@ -96,8 +96,8 @@ def _check_lanes(scene, q, q_id, t, new_dir, new_att, rad_hit,
                  rows[:, alive].contiguous())
     assert torch.equal(rec.view(torch.int64)[alive, 6], q_id[alive])
     lanes = [t, new_dir, new_att, rad_hit, terminated]
-    plain = _PLAIN(scene, q, q_id, lanes, None)
-    mine = twf._compact_by_hand(scene, q, q_id, list(lanes), None)
+    plain = _PLAIN(scene, q, q_id, lanes)
+    mine = twf._compact_by_hand(scene, q, q_id, list(lanes))
     assert _same(mine[0], plain[0]) and torch.equal(mine[1], plain[1])
     return int(live)
 
@@ -111,9 +111,9 @@ def test_host_compaction_matches_plain_on_frame_bounces(scene_name,
     scene, cam = _scene(scene_name)
     lives = []
 
-    def both(scene, q, q_id, lanes, prof):
+    def both(scene, q, q_id, lanes):
         lives.append(_check_lanes(scene, q, q_id, *lanes))
-        return _PLAIN(scene, q, q_id, lanes, prof)
+        return _PLAIN(scene, q, q_id, lanes)
 
     monkeypatch.setattr(twf, "_compact_plain", both)
     _, rays = twf.render_wavefront(scene, cam, width=W, height=H, spp=2,
@@ -131,7 +131,7 @@ def _first_bounce(scene_name):
                                  V3(q[3], q[4], q[5]))
     nd, na, rh, term = twf._stages_plain(
         scene, q, q_id, hit, hit.tri < 0, 0, torch.zeros((W * H, 3)), SEED,
-        0, torch.arange(W * H), False, None)
+        0, torch.arange(W * H), False)
     return scene, q, q_id, hit.t, nd, na, rh, term
 
 

@@ -612,7 +612,7 @@ def test_scatter_queue_matches_plain(cuda, r, rr):
     for stages in (twf._stages_plain, twf._stages_by_hand):
         acc = torch.zeros((r, 3), device=cuda)
         nd, na, rh, term = stages(scene, q, q_id, hit, miss, 4, acc,
-                                  (1 << 40) + 7, 5, lane, rr, None)
+                                  (1 << 40) + 7, 5, lane, rr)
         out.append((torch.stack([*nd, *na, *rh]), term, acc))
     (a, ta, acc_a), (b, tb, acc_b) = out
     assert torch.equal(ta, tb)
@@ -687,9 +687,9 @@ def _hold_compaction(scene, q, q_id, lanes):
     terminated] of a bounce: the next queue and its ids equal bit for
     bit, and the by-hand path empties the list. Returns the next queue
     by hand."""
-    plain = _PLAIN_COMPACT(scene, q, q_id, lanes, None)
+    plain = _PLAIN_COMPACT(scene, q, q_id, lanes)
     before = _compact_launches()
-    mine = _BY_HAND_COMPACT(scene, q, q_id, lanes, None)
+    mine = _BY_HAND_COMPACT(scene, q, q_id, lanes)
     assert lanes == []
     assert _compact_launches() == tuple(b + 1 for b in before)
     assert torch.equal(mine[0].view(torch.int32), plain[0].view(torch.int32))
@@ -713,7 +713,7 @@ def test_compaction_matches_plain_at_lane_counts(cuda, r, dead):
     acc = torch.zeros((max(r, 1), 3), device=cuda)
     nd, na, rh, term = twf._stages_plain(
         scene, q, q_id, hit, hit.tri < 0, 1, acc, 11, 0,
-        torch.arange(max(r, 1), device=cuda), False, None)
+        torch.arange(max(r, 1), device=cuda), False)
     if dead == "all":
         term = torch.ones_like(term)
     q2, q_id2 = _hold_compaction(scene, q, q_id, [hit.t, nd, na, rh, term])
@@ -751,7 +751,7 @@ def test_compaction_matches_plain_on_frame_bounces(cuda, monkeypatch):
     for name, (scene, cam) in _compaction_scenes(cuda).items():
         calls = []
 
-        def both(scene, q, q_id, lanes, prof):
+        def both(scene, q, q_id, lanes):
             calls.append(q.shape[1])
             return _hold_compaction(scene, q, q_id, lanes)
 
@@ -1038,8 +1038,8 @@ def test_every_wait_of_a_frame_is_a_sync_range(cuda, engine, monkeypatch):
     real = sprofile.sync
 
     @contextlib.contextmanager
-    def counted(prof, name):
-        with real(prof, name):
+    def counted(name):
+        with real(name):
             depth[0] += 1
             try:
                 yield
