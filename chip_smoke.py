@@ -5,6 +5,7 @@ kernel on them against its plain PyTorch version, and report.
     python3 chip_smoke.py --cards   # several cards: --devices across them
     python3 chip_smoke.py --stages  # one card: phases 1, 2 and 4d alone
     python3 chip_smoke.py --compact # one card: phases 1, 2 and 4e alone
+    python3 chip_smoke.py --order   # one card: phases 1, 2 and 4f alone
 
 Phases (any failure raises and exits non-zero):
 1. device: CUDA is required; prints the card's name and power limit;
@@ -102,6 +103,16 @@ Phases (any failure raises and exits non-zero):
    bit, the key pass, sort and gather timed alone, and the whole
    compaction against the eager one in turns, with its bytes and their
    share of 3.35 TB/s;
+4f. (after 4b) the order of traverse8's walk over a megakernel wave's
+   first-bounce rays (8 spp at 1024x1024, 8,388,608 lanes): the
+   survivors in the wavefront's key order, in lane order (masked, and
+   compacted), masked with the scene's box (the ordered entry, which
+   gathers the rays by bucket before its walk) and its ordering kernels
+   alone, and in ascending top-B bits of the key for
+   each B tried, timed in turns; the camera rays masked in lane order and
+   ordered; ordered hits equal to lane-order hits bit for bit; then each
+   masked launch's kernels under torch.profiler, and the ordering
+   kernels' bytes a lane and their share of 3.35 TB/s;
 4c. (after 4b) the binary-LBVH cross-check intersector (intersector=
    "lbvh", ops/traverse.py, plain torch) against traverse8 on the 1M
    bounce rays of 4, ids in Morton slots on both sides, with the rules
@@ -293,6 +304,10 @@ SM_REGS, SM_SMEM, SM_BLOCKS, SM_WARPS = 65536, 228 * 1024, 32, 64
 # threads per block of each kernel (csrc/*.cu)
 BLOCK_THREADS = {"traverse8_kernel": 128, "traverse5_kernel": 128,
                  "traverse1_kernel": 128, "compact_lanes_kernel": 256,
+                 "traverse8_records_kernel": 128,
+                 "traverse_order_count_kernel": 256,
+                 "traverse_order_scan_kernel": 1024,
+                 "traverse_order_place_kernel": 256,
                  "shade_kernel": 256, "scatter_queue_kernel": 256,
                  "scatter_paths_kernel": 256, "compact_keys_kernel": 256,
                  "radix_pass_kernel": 256, "compact_gather_kernel": 256}
@@ -582,6 +597,173 @@ def phase_masked(kern, plain, o, d, smi: str, label: str) -> None:
         f"{out[LIVE_SHARES[-1]] / out[1.0]:.3f} of the all-live launch")
 
 
+def megakernel_wave(scene, cam, width: int, height: int, waves: int,
+                    seed: int, bounce: int = 1):
+    """Bounce `bounce` (1: the first after the camera rays) of a
+    megakernel wave of `waves` samples of every pixel: (key, lanes,
+    active, primary). The wavefront's queue after `bounce` bounces holds
+    the survivors' rays in its key order, each with its queue id, which
+    is its megakernel lane (both engines trace the same paths): key =
+    (o, d) of the survivors in key order; lanes = (o, d) of every lane
+    in lane order, zero where `active` [R] is False; primary = (o, d) of
+    the camera rays in lane order."""
+    from sycl_ray_tracer_torch.models import wavefront as wf
+    from sycl_ray_tracer_torch.ops.vec import V3
+
+    pixels = wf.frame_pixels(width, height, cam.center.device)
+    q, q_id = wf._gen_queue(cam, seed, 0, pixels=pixels, waves=waves)
+    primary = _rays_from_queue(q, q.shape[1])
+    r = q.shape[1]
+    acc = torch.zeros((width * height, 3), device=q.device)
+    q2, q_id2 = q, q_id
+    for b in range(bounce):
+        q2, q_id2 = wf._bounce(scene, q2, q_id2, b, acc, seed, 0, pixels[2])
+    del q, q_id, acc
+    rows = torch.zeros((6, r), device=q2.device)
+    rows[:, q_id2] = q2[0:6]
+    active = torch.zeros(r, dtype=torch.bool, device=q2.device)
+    active[q_id2] = True
+    key = _rays_from_queue(q2, q2.shape[1])
+    return key, (V3(*rows[0:3]), V3(*rows[3:6])), active, primary
+
+
+# the top bits of the dir6_morton key that phase 4f orders rays by
+ORDER_BITS_TRIED = (5, 8, 10, 12, 14, 16, 18, 20, 22, 25)
+
+
+def profiled_ms(fn, reps: int, match) -> dict:
+    """Device ms per call of each kernel whose bare name (the benchmark's,
+    srt_bench/arith.py) `match` accepts, over `reps` calls of fn under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from srt_bench.arith import bare_name
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = bare_name(e.key)
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if match(name) and us > 0:
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
+def phase_order(scene, cam, smi: str) -> dict:
+    """Phase 4f: the order in which traverse8 walks a megakernel wave's
+    first-bounce rays (8 samples of each of 1024x1024 pixels, 8,388,608
+    lanes, the benchmark's megakernel wave), timed in turns (each case,
+    then each again in reverse order): the survivors in the wavefront's
+    key order (contiguous, unmasked); in lane order, masked (the
+    megakernel's launch in lane order) and compacted (contiguous); masked
+    with the scene's box (the ordered entry: its ordering kernels, which
+    gather the live rays into records by bucket, and the walk over the
+    records), and the ordering kernels alone;
+    contiguous in ascending top-B bits of the key for each B of
+    ORDER_BITS_TRIED; the camera rays masked in lane order and ordered.
+    The ordered launches' hits equal the lane-order launches' bit for
+    bit. Then the kernels of each masked launch under torch.profiler:
+    device ms a launch, and the ordering kernels' bytes and their share
+    of 3.35 TB/s."""
+    from srt_bench.arith import intersect_kernel
+    from sycl_ray_tracer_torch.models import wavefront as wf
+    from sycl_ray_tracer_torch.ops import kernels
+    from sycl_ray_tracer_torch.ops import traverse8 as t8
+    from sycl_ray_tracer_torch.ops.vec import V3
+
+    key, lanes, active, primary = megakernel_wave(scene, cam, 1024, 1024,
+                                                  WAVE_LANES // (1 << 20),
+                                                  (1 << 40) + 2147483029)
+    kern, _ = kernel_pair("traverse8", scene)
+    box = (scene.scene_lo, scene.scene_hi)
+    r, m = active.shape[0], key[0].x.shape[0]
+    ol, dl = lanes
+    live = active.nonzero().squeeze(1)
+    full = wf._coherence_key(scene, V3(*(c[live] for c in ol)),
+                             V3(*(c[live] for c in dl)))
+
+    def gathered(perm):
+        return tuple(V3(*(c[perm] for c in v)) for v in lanes)
+
+    everyone = torch.ones(r, dtype=torch.bool, device=active.device)
+    cases = {
+        "key order, contiguous": (lambda: kern(*key), m),
+        "lane order, masked": (lambda: kern(ol, dl, active=active), m),
+        "ordered, masked": (lambda: kern(ol, dl, active=active,
+                                         order_box=box), m),
+        "ordering alone": (lambda: t8.order(ol, dl, active, *box), m),
+        "lane order, contiguous": (
+            (lambda c: lambda: kern(*c))(gathered(live)), m)}
+    for b in ORDER_BITS_TRIED:
+        perm = live[torch.argsort(full >> (32 - b), stable=True)]
+        cases[f"top {b} bits, contiguous"] = (
+            (lambda c: lambda: kern(*c))(gathered(perm)), m)
+    cases["camera rays, masked"] = (
+        lambda: kern(*primary, active=everyone), r)
+    cases["camera rays, ordered"] = (
+        lambda: kern(*primary, active=everyone, order_box=box), r)
+    del full
+
+    for a, b in ((kern(ol, dl, active=active),
+                  kern(ol, dl, active=active, order_box=box)),
+                 (kern(*primary, active=everyone),
+                  kern(*primary, active=everyone, order_box=box))):
+        for x, y in zip(a, b):
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                raise AssertionError("the ordered launch's hits differ "
+                                     "from the lane-order launch's")
+    runs = {name: [] for name in cases}
+    for order in (list(cases), list(reversed(cases))):
+        for name in order:
+            runs[name].append(time_ms(cases[name][0], 5))
+    out = {}
+    for name, (_, n) in cases.items():
+        ms = sum(runs[name]) / len(runs[name])
+        out[name] = ms
+        log(f"[order] {name}: {ms:.3f} ms (runs "
+            f"{', '.join(f'{x:.3f}' for x in runs[name])}), "
+            f"{ms / (n / 1e6):.4f} ms per 1M rays walked, on {smi}")
+    walk = out["ordered, masked"] - out["ordering alone"]
+    log(f"[order] {r} lanes, {m} live: the ordered walk {walk:.3f} ms "
+        f"({walk / (m / 1e6):.4f} ms per 1M live lanes) against "
+        f"{out['lane order, masked']:.3f} ms in lane order (its "
+        f"compaction included) and {out['key order, contiguous']:.3f} in "
+        f"the wavefront's key order; the ordering {out['ordering alone']:.3f}"
+        f" ms; camera rays {out['camera rays, ordered']:.3f} ordered, "
+        f"{out['camera rays, masked']:.3f} in lane order")
+
+    inside = kernels.ORDER_BINS
+    for label, fn in (("lane order", lambda: kern(ol, dl, active=active)),
+                      ("ordered", lambda: kern(ol, dl, active=active,
+                                               order_box=box))):
+        split = profiled_ms(fn, 3, intersect_kernel)
+        log(f"[order] {label}, masked, under the profiler: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in sorted(split.items())))
+        out[f"profile {label}"] = split
+    # the ordering's bytes: the count pass reads every flag and a live
+    # lane's ray (24 B) and writes its bin and place (8 B) or a dead
+    # lane's result (16 B); the place pass reads every tri slot (4 B), a
+    # live lane's place, ray and bin's first slot (32 B) and writes its
+    # 32-byte record
+    nbytes = r * (1 + 4) + m * (24 + 8 + 32 + 32) + (r - m) * 16
+    ms = sum(v for k, v in out["profile ordered"].items()
+             if k.startswith("traverse_order"))
+    if ms <= 0:
+        raise AssertionError("the profiler shows no ordering kernel")
+    log(f"[order] the ordering kernels at {r} lanes ({m} live, {inside} "
+        f"bins): {ms:.3f} ms, {nbytes / r:.1f} bytes a lane, "
+        f"{100 * nbytes / HBM_BYTES_PER_S / (ms * 1e-3):.1f} % of 3.35 TB/s")
+    return out
+
+
 def megakernel_bound(scene, cam, label: str, name: str = "traverse8",
                      stride: int = 1) -> None:
     """The bound of the megakernel frame's launches of kernel `name`: the
@@ -614,8 +796,8 @@ def megakernel_bound(scene, cam, label: str, name: str = "traverse8",
                                V3(*(c[sl] for c in d)), counts=counts)
         return hit, counts
 
-    def counted_launch(kname, tabs, o, d, active, t_init, device):
-        hit = launch(kname, tabs, o, d, active, t_init, device)
+    def counted_launch(kname, tabs, o, d, active, t_init, device, **kw):
+        hit = launch(kname, tabs, o, d, active, t_init, device, **kw)
         if kname != name or active is None or t_init is not None:
             raise AssertionError(f"the megakernel launches {name} with a "
                                  "mask and no t_init")
@@ -1258,6 +1440,19 @@ def compact_main() -> int:
     return 0
 
 
+def order_main() -> int:
+    """python3 chip_smoke.py --order: phases 1, 2 and 4f alone."""
+    from sycl_ray_tracer_torch.utils.cli import resolve_scene_bytes
+
+    smi = phase_device()
+    phase_build()
+    scene, cam, _ = load(resolve_scene_bytes("sponza_proc"), 1024, 1024,
+                         torch.device("cuda"))
+    timed_phase("walk order", phase_order, scene, cam, smi)
+    log("[order] ok")
+    return 0
+
+
 def stages_main() -> int:
     """python3 chip_smoke.py --stages: phases 1, 2 and 4d alone, on the 1M
     first-bounce rays of sponza_proc scale 2."""
@@ -1828,11 +2023,14 @@ def phase_headline(render, scene, cam, smi: str, label: str, kernel,
                    absent, waves: int = 1):
     """render(...) at 1024x1024, 64 spp, depth 10 after a 1-spp warm-up;
     checks that `kernel` launched once per bounce of each of the frame's
-    `waves` waves and no kernel of `absent` ran; returns (launches of
+    `waves` waves and no kernel of `absent` ran, and that traverse8's
+    ordered entry ran for every bounce but each wave's first in the
+    megakernel, and never in the wavefront; returns (launches of
     `kernel`, per-bounce tallies, the image on the host, the frame's
     seconds). CUDA events around each kernel launch
     (ops/kernels.py:launch) give the kernel's time within the frame."""
     from sycl_ray_tracer_torch.ops import kernels
+    from sycl_ray_tracer_torch.ops.traverse8 import traverse8
 
     kw = dict(width=HEADLINE["width"], height=HEADLINE["height"],
               max_depth=HEADLINE["max_depth"])
@@ -1841,13 +2039,14 @@ def phase_headline(render, scene, cam, smi: str, label: str, kernel,
     torch.cuda.reset_peak_memory_stats()
     for k in (kernel, *absent):
         k.launches = 0
+    traverse8.ordered_launches = 0
     events, launch = [], kernels.launch
 
-    def timed_launch(*args):
+    def timed_launch(*args, **kw):
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record()
-        hit = launch(*args)
+        hit = launch(*args, **kw)
         ev[1].record()
         events.append((ev, args[2].x.shape[0]))
         return hit
@@ -1881,6 +2080,12 @@ def phase_headline(render, scene, cam, smi: str, label: str, kernel,
         raise AssertionError(
             f"{kernel.__name__} launched {launches} times for {bounces} "
             f"bounces of {waves} waves; other kernels {others}")
+    ordered = (launches - waves if kernel is traverse8
+               and render.__name__ == "render_megakernel" else 0)
+    if traverse8.ordered_launches != ordered:
+        raise AssertionError(f"traverse8's ordered entry ran "
+                             f"{traverse8.ordered_launches} times, not "
+                             f"{ordered}")
     img = img.cpu().numpy()
     if not np.isfinite(img).all() or img.max() <= 0.0 or img.mean() < 0.01:
         raise AssertionError(f"{label} headline image is not finite or is "
@@ -2400,6 +2605,7 @@ def main() -> int:
     b8 = bound("traverse8", scene, kern, *bounce1m,
                "traverse8 sponza_proc bounce 1M")
     phase_masked(kern, plain, *bounce1m, smi, "traverse8 sponza_proc bounce")
+    timed_phase("walk order", phase_order, scene, cam, smi)
     timed_phase("LBVH against traverse8", phase_lbvh_vs_sah, scene, host,
                 *bounce1m, smi)
     err5 = phase_mt_mode(scene, host, {"primary": prim, "bounce": bounce},
@@ -2604,4 +2810,5 @@ def cards_main() -> int:
 if __name__ == "__main__":
     sys.exit(cards_main() if sys.argv[1:] == ["--cards"] else
              stages_main() if sys.argv[1:] == ["--stages"] else
-             compact_main() if sys.argv[1:] == ["--compact"] else main())
+             compact_main() if sys.argv[1:] == ["--compact"] else
+             order_main() if sys.argv[1:] == ["--order"] else main())

@@ -68,6 +68,42 @@ __device__ __forceinline__ void walk_all(const RayIO& io,
   }
 }
 
+// A launch's hits (t_init may be null: BIG), for walk_records.
+struct HitIO {
+  const float* __restrict__ t_init;
+  float* __restrict__ t;
+  int32_t* __restrict__ tri;
+  float* __restrict__ u;
+  float* __restrict__ v;
+};
+
+// As walk_all, over n 32-byte records (rec, 16-byte aligned; order.cuh
+// store_record): a record's ray in two 16-byte loads, its hit written to
+// its lane.
+template <class Trace>
+__device__ __forceinline__ void walk_records(const HitIO& io,
+                                             const float* __restrict__ rec,
+                                             unsigned long long* next,
+                                             int64_t n, Trace&& trace) {
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    unsigned long long base = 0;
+    if (lane == 0) base = atomicAdd(next, 32ull);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if ((int64_t)base >= n) return;
+    const int64_t k = (int64_t)base + lane;
+    if (k >= n) continue;
+    const F4 a = ld4(rec + 8 * k), b = ld4(rec + 8 * k + 4);
+    const int64_t i = __float_as_int(b.z);
+    const HitOut h = trace(Ray{a.x, a.y, a.z, a.w, b.x, b.y},
+                           io.t_init == nullptr ? kBig : io.t_init[i]);
+    io.t[i] = h.t;
+    io.tri[i] = h.tri;
+    io.u[i] = h.u;
+    io.v[i] = h.v;
+  }
+}
+
 namespace {
 
 __global__ void __launch_bounds__(256)

@@ -61,7 +61,8 @@ def start_state(o: V3, d: V3) -> PathState:
 
 
 def intersect_scene(scene, o: V3, d: V3,
-                    active: torch.Tensor | None = None) -> Hit:
+                    active: torch.Tensor | None = None,
+                    ordered: bool = False) -> Hit:
     """Closest hit of the active rays (all when active is None), with
     hit ids in the slots that every shading table uses. Heap scenes
     (leaf_size != 8) go through the Morton heap with K-slot MT leaves
@@ -72,7 +73,11 @@ def intersect_scene(scene, o: V3, d: V3,
     ids map through bvh_remap (SAH slot -> canonical Morton slot;
     global slot -> inst * S8 + shared row). Scenes built with
     intersector="lbvh" go through the binary-LBVH walk in plain torch
-    (ops/traverse.py), whose ids are Morton slots too."""
+    (ops/traverse.py), whose ids are Morton slots too. `ordered` (with
+    `active`) asks traverse8 to gather the live lanes' rays in buckets of
+    their dir6_morton key over the scene's box and walk them in that
+    order; the other walks take them in lane order. The hits are the
+    same either way."""
     if scene.intersector == "lbvh":
         return traverse(scene.lbvh_lo, scene.lbvh_hi, scene.lbvh_v0,
                         scene.lbvh_e1, scene.lbvh_e2, o, d, scene.leaf_size,
@@ -85,8 +90,11 @@ def intersect_scene(scene, o: V3, d: V3,
                         scene.sah_ni, o, d, active=active,
                         leaf_slot=scene.inst_leaf_slot, leaf_xf=scene.inst_xf)
     else:
+        box = ((scene.scene_lo, scene.scene_hi)
+               if ordered and active is not None else None)
         hit = traverse8(scene.bvh_nodes, scene.bvh_child_ids,
-                        scene.bvh_woop, scene.sah_ni, o, d, active=active)
+                        scene.bvh_woop, scene.sah_ni, o, d, active=active,
+                        order_box=box)
     tri = torch.where(hit.tri >= 0,
                       scene.bvh_remap[hit.tri.clamp(min=0).to(torch.int64)],
                       -1)
@@ -159,11 +167,17 @@ def trace_step(scene, state: PathState, key: torch.Tensor,
     package's trace_step (trace.py:466-519), in the same order, and per
     lane those of models/wavefront.py:_bounce, so that both engines
     compute the same paths. The stages run in utils/profile.py:stage.
+    The intersection walks bounce rays (bounce_counter > 2) in coherence
+    order (intersect_scene's `ordered`): after the first bounce
+    neighbouring lanes shoot into every direction; camera rays keep lane
+    order, in which neighbouring pixels are coherent already (ordering
+    them measured slower, chip_smoke.py phase 4f).
     On the card shade and scatter are one kernel each (step_by_hand),
     which update the state in place; on the CPU they are plain torch
     (step_plain)."""
     with _profile.stage("intersect"):
-        hit = intersect_scene(scene, state.o, state.d, active=~state.done)
+        hit = intersect_scene(scene, state.o, state.d, active=~state.done,
+                              ordered=bounce_counter > 2)
         miss = hit.tri < 0
     step = step_by_hand if state.o.x.is_cuda else step_plain
     return step(scene, state, hit, miss, key, bounce_counter, rr)

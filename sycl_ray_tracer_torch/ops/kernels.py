@@ -38,7 +38,17 @@ CUDA_SOURCES = ("traverse8.cu", "traverse5.cu", "traverse1.cu", "vertex.cu",
 # of live lanes (int32 [R], with an active mask) and two zeroed 64-bit
 # counters (csrc/schedule.cuh)
 SCHEDULED = ("traverse8", "traverse5", "traverse1")
-HOST_SOURCES = ("walk_host.cpp", "vertex_host.cpp", "compact_host.cpp")
+# traverse8's second masked entry, srt_traverse8_ordered, takes the
+# scene's box (lo, hi: f32 [3] each) after the scratch and walks the live
+# lanes in order of the top ORDER_BITS bits of their dir6_morton key
+# (csrc/order.cuh), their rays gathered first into records of
+# RECORD_FLOATS f32 ([R, 8] in place of the list); its counters are 2 +
+# ORDER_BINS / 2 words, the bins' counts after the two
+ORDER_BITS = 20
+RECORD_FLOATS = 8
+ORDER_BINS = 24 << (ORDER_BITS - 7)
+HOST_SOURCES = ("walk_host.cpp", "vertex_host.cpp", "compact_host.cpp",
+                "order_host.cpp")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # No --use_fast_math (dead slots need IEEE inf/NaN). FMA contraction is
 # off so that the kernels round exactly as their plain torch versions
@@ -57,15 +67,17 @@ _I64 = ctypes.c_int64
 _TABLES = {"traverse8": [_P, _P, _P, _I32],
            "traverse5": [_P, _P, _P, _P, _P, _I32],
            "traverse1": [_P, _P, _I32, _I32, _I32]}
-# argument types of the bounce stages' and the compaction's C entry
-# points (csrc/vertex.cu, csrc/compact.cu), ahead of the stream (card);
-# their structs are built by ops/vertex.py and ops/compact.py
+# argument types of the bounce stages', the compaction's and the walk
+# order's C entry points (csrc/vertex.cu, csrc/compact.cu,
+# csrc/traverse8.cu), ahead of the stream (card); the stages' and the
+# compaction's structs are built by ops/vertex.py and ops/compact.py
 _STAGES = {"shade": [_P, _P, _I32, _P, _P, _P, _I64],
            "scatter_queue": [_P, _P],
            "scatter_paths": [_P, _P],
            "compact_keys": [_P, _P],
            "compact_sort": [_P],
-           "compact_gather": [_P, _P, _I64, _P, _P]}
+           "compact_gather": [_P, _P, _I64, _P, _P],
+           "traverse8_order": [_P] * 13 + [_I64, _P, _P]}
 
 _lib = None
 _host_lib = None
@@ -162,6 +174,10 @@ def _bind(lib: ctypes.CDLL, suffix: str, tail: list,
     if lib.srt_stack() != STACK:
         raise RuntimeError("csrc/bvh8_walk.cuh SRT_STACK differs from "
                            "ops/kernels.py STACK")
+    lib.srt_order_bins.restype = ctypes.c_int
+    if lib.srt_order_bins() != ORDER_BINS:
+        raise RuntimeError("csrc/order.cuh kOrderBins differs from "
+                           "ops/kernels.py ORDER_BINS")
     return lib
 
 
@@ -175,6 +191,9 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             if name in SCHEDULED:
                 fn.argtypes = fn.argtypes[:-1] + [_P, _P, _P]
+        lib.srt_traverse8_ordered.argtypes = (
+            lib.srt_traverse8.argtypes[:-1] + [_P, _P, _P])
+        lib.srt_traverse8_ordered.restype = ctypes.c_int
         lib.srt_compact_sort_scratch.argtypes = [_I64]
         lib.srt_compact_sort_scratch.restype = _I64
         _lib = lib
@@ -197,15 +216,15 @@ def entry_device(t: torch.Tensor) -> torch.device:
     """t's device, where the entries of _STAGES run: cuda (the kernel) or
     cpu (its host build)."""
     if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"the bounce stages and the compaction run on cuda "
-                         f"or cpu, not {t.device}")
+        raise ValueError(f"the bounce stages, the compaction and the walk "
+                         f"order run on cuda or cpu, not {t.device}")
     return t.device
 
 
 def call(name: str, dev: torch.device, *args) -> None:
-    """Run entry srt_<name> of the stages' or the compaction's (_STAGES):
-    the kernel on the current stream of a CUDA device, or its host build
-    on the CPU."""
+    """Run entry srt_<name> of _STAGES (the stages', the compaction's or
+    the walk order's): the kernel on the current stream of a CUDA device,
+    or its host build on the CPU."""
     if dev.type == "cpu":
         getattr(load_host_library(), f"srt_{name}_host")(*args)
         return
@@ -260,10 +279,11 @@ def _ptr(x):
 
 
 def launch(name: str, tables: list, o: V3, d: V3, active, t_init,
-           device) -> Hit:
+           device, order_box=None) -> Hit:
     """Launch the kernel `name` on the current stream of `device` with
     checked inputs (tables are tensors, or ints passed as int32);
-    raises if CUDA reports an error for the launch."""
+    raises if CUDA reports an error for the launch. order_box (lo, hi)
+    launches traverse8's ordered entry (with a mask)."""
     r = o.x.shape[0]
     if r >= 2**31:
         raise ValueError(f"{name}: at most 2**31 - 1 rays per launch")
@@ -271,7 +291,8 @@ def launch(name: str, tables: list, o: V3, d: V3, active, t_init,
     tri = torch.empty((r,), dtype=torch.int32, device=device)
     u = torch.empty((r,), dtype=torch.float32, device=device)
     v = torch.empty((r,), dtype=torch.float32, device=device)
-    fn = getattr(load_library(), f"srt_{name}")
+    fn = getattr(load_library(),
+                 f"srt_{name}" + ("" if order_box is None else "_ordered"))
     args = [x if isinstance(x, int) else _ptr(x) for x in tables]
     with torch.cuda.device(device):
         # the scratch may be freed once the launch is queued: the caching
@@ -279,10 +300,19 @@ def launch(name: str, tables: list, o: V3, d: V3, active, t_init,
         # this stream
         scratch = []
         if name in SCHEDULED:
-            lanes = (None if active is None else
-                     torch.empty((r,), dtype=torch.int32, device=device))
-            counters = torch.zeros((2,), dtype=torch.int64, device=device)
+            if active is None:
+                lanes = None
+            elif order_box is None:
+                lanes = torch.empty((r,), dtype=torch.int32, device=device)
+            else:  # the ordered entry's records of the live rays
+                lanes = torch.empty((r, RECORD_FLOATS), dtype=torch.float32,
+                                    device=device)
+            counters = torch.zeros(
+                (2 + (0 if order_box is None else ORDER_BINS // 2),),
+                dtype=torch.int64, device=device)
             scratch = [_ptr(lanes), counters.data_ptr()]
+        if order_box is not None:
+            scratch += [b.data_ptr() for b in order_box]
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, *(c.data_ptr() for c in (*o, *d)), _ptr(active),
                  _ptr(t_init), t.data_ptr(), tri.data_ptr(), u.data_ptr(),

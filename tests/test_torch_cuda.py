@@ -466,6 +466,111 @@ def test_kernel_matches_plain_and_host_under_masks(cuda, name, mask):
     assert bool((k.u[ina] == 0).all()) and bool((k.v[ina] == 0).all())
 
 
+def _order_case(dev, r, mask, seed=19):
+    """r rays of traverse8's case (half from the camera, half from points
+    in the scene) and a mask: none, all or a ragged 61 % of the lanes
+    live."""
+    cam, pts, ktabs, *_ = _kernel_case("traverse8", dev)
+    o, d = _case_rays(cam, pts, r, seed, dev)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    active = {"dead": torch.zeros(r, dtype=torch.bool),
+              "live": torch.ones(r, dtype=torch.bool),
+              "ragged": torch.rand(r, generator=gen) < 0.61}[mask].to(dev)
+    return ktabs, o, d, active
+
+
+def _scene_box(dev):
+    host = load_glb(tproc.sponza_like_glb(scale=1))
+    sc = build_device_scene(host, device=dev)
+    return sc.scene_lo, sc.scene_hi
+
+
+@pytest.mark.parametrize("r", [0, 1, 255, 256, 257, 1 << 20])
+@pytest.mark.parametrize("mask", ["dead", "live", "ragged"])
+def test_order_lists_live_lanes_by_bucket(cuda, r, mask):
+    """The ordering kernels alone: the list's first `live` entries are
+    the live lanes, each once, in ascending bucket (the plain buckets,
+    the top ORDER_BITS bits of the wavefront's sort key; the order within
+    a bucket is free), each record holding its lane's ray bit for bit,
+    and the inactive lanes report (0, -1, 0, 0)."""
+    _, o, d, active = _order_case(cuda, r, mask)
+    lo, hi = _scene_box(cuda)
+    rec, live, hit = t8.order(o, d, active, lo, hi)
+    torch.cuda.synchronize()
+    m = int(live)
+    assert m == int(active.sum())
+    got = t8.record_lanes(rec, m)
+    assert torch.equal(torch.sort(got).values,
+                       active.nonzero().squeeze(1))
+    rays = torch.stack([c[got] for c in (*o, *d)], 1)
+    assert torch.equal(rec[:m, :6].view(torch.int32), rays.view(torch.int32))
+    b = t8.order_buckets(o, d, lo, hi)[got]
+    assert bool((b[1:] >= b[:-1]).all())
+    assert torch.equal(torch.sort(b).values, torch.sort(
+        t8.order_buckets(o, d, lo, hi)[t8.order_plain(o, d, active, lo,
+                                                       hi)]).values)
+    ina = ~active
+    assert bool((hit.t[ina] == 0).all()) and bool((hit.tri[ina] == -1).all())
+    assert bool((hit.u[ina] == 0).all()) and bool((hit.v[ina] == 0).all())
+    if r == 1 << 20 and mask != "dead":
+        assert len(torch.unique(b)) > 1000
+
+
+@pytest.mark.parametrize("r", [1, 257, 1 << 20])
+@pytest.mark.parametrize("mask", ["dead", "live", "ragged"])
+def test_ordered_traverse8_matches_lane_order(cuda, r, mask):
+    """The masked traverse8 launch with the scene's box (its live lanes'
+    rays gathered and walked by bucket) returns the hits of the launch in
+    lane order bit for bit, and counts one launch and one ordered
+    launch."""
+    ktabs, o, d, active = _order_case(cuda, r, mask)
+    box = _scene_box(cuda)
+    want = t8.traverse8(*ktabs, o, d, active=active)
+    before = (t8.traverse8.launches, t8.traverse8.ordered_launches)
+    got = t8.traverse8(*ktabs, o, d, active=active, order_box=box)
+    assert (t8.traverse8.launches, t8.traverse8.ordered_launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with pytest.raises(ValueError):
+        t8.traverse8(*ktabs, o, d, active=active,
+                     order_box=(box[0].double(), box[1]))
+
+
+@pytest.mark.parametrize("leaf_size", [8, 4])
+def test_megakernel_orders_bounce_launches(cuda, monkeypatch, leaf_size):
+    """A 64x48, 4-spp, depth-8 megakernel frame of the sponza-like
+    fixture: with traverse8's bounce launches ordered (every launch but
+    each wave's first), the pixels and tallies equal those of the same
+    frame with every launch in lane order, bit for bit. The Morton heap
+    (traverse1) is never ordered."""
+    host = load_glb(tproc.sponza_like_glb(scale=1))
+    scene = build_device_scene(host, leaf_size=leaf_size, device=cuda)
+    cam = make_camera(64, 48, host.camera_position, host.camera_direction,
+                      host.camera_focal_length, device=cuda)
+    kw = dict(width=64, height=48, spp=4, max_depth=8, seed=(1 << 40) + 3)
+    before = (t8.traverse8.launches, t8.traverse8.ordered_launches,
+              t1.traverse1.launches)
+    img, rays = render_megakernel(scene, cam, **kw)
+    after = (t8.traverse8.launches, t8.traverse8.ordered_launches,
+             t1.traverse1.launches)
+    launched = [a - b for a, b in zip(after, before)]
+    bounces = int((rays > 0).sum())
+    assert bounces >= 5
+    if leaf_size == 8:
+        assert launched == [bounces, bounces - 1, 0]
+    else:
+        assert launched == [0, 0, bounces]
+
+    def lane_order(*args, order_box=None, **kwargs):
+        return t8.traverse8(*args, **kwargs)
+
+    monkeypatch.setattr(ttrace, "traverse8", lane_order)
+    img_l, rays_l = render_megakernel(scene, cam, **kw)
+    assert torch.equal(rays, rays_l)
+    assert torch.equal(img.view(torch.int32), img_l.view(torch.int32))
+
+
 @pytest.mark.parametrize("name", _KERNELS)
 def test_wrapper_refuses_misaligned_tables(cuda, name):
     """A table view that starts 4 bytes past a 16-byte boundary is

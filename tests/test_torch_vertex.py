@@ -231,7 +231,7 @@ _BOUNCES = (1, 4)
 def _check_trace_step(scene_name, rr, monkeypatch):
     scene, st, hit, key = _path_state(scene_name)
     monkeypatch.setattr(ttrace, "intersect_scene",
-                        lambda scene, o, d, active=None: hit)
+                        lambda scene, o, d, active=None, ordered=False: hit)
     for counter in (b + 2 for b in _BOUNCES):
         plain = ttrace.trace_step(scene, st, key, counter, rr=rr)
         mine = _copy_state(st)
